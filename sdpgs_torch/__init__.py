@@ -4,11 +4,14 @@ The PyTorch counterpart of ``sdpgs_tpu``: module names mirror that package
 so each function's reference is easy to find. It imports neither JAX nor
 anything of ``sdpgs_tpu``.
 
-So far the port covers the serving path: load a trained cloud from a PLY,
-render views (preprocess + SH, tile binning, compositing) and write them
-out (``cli/render_cli.render_set``). Three kernels in ``csrc/`` carry that
-path on the card; beside each wrapper sits a plain PyTorch version of the
-same function, used for CPU tensors and as the kernel's check.
+So far the port covers two paths. Serving: load a trained cloud from a
+PLY, render views (preprocess + SH, tile binning, compositing) and write
+them out (``cli/render_cli.render_set``). Training: the plain train step
+(``train/step.make_train_step``), one combined loss, one backward and one
+Adam step. Five kernels in ``csrc/`` carry them on the card: three
+forward (preprocess, binning, compositing) and two backward (preprocess,
+compositing). Beside each wrapper sits a plain PyTorch version of the same
+function, used for CPU tensors and as the kernel's check.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that request they raise.

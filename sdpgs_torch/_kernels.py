@@ -10,7 +10,8 @@ versions for CPU tensors.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and every plain version adds one to ``PLAIN_CALLS[name]``, so a run can
-show which path it took.
+show which path it took. K1-K3 (``FORWARD_KERNELS``) run on every render;
+K4 and K5 (``BACKWARD_KERNELS``) run in the backward of a train step.
 """
 
 from __future__ import annotations
@@ -30,14 +31,19 @@ BUILD_DIR = Path(__file__).resolve().parent / "build" / "kernels"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags. K1's culling and radius are step functions of float
-# math: no FMA contraction, so it rounds exactly as the plain version does.
+# Per-source flags. K1's culling and radius, and the masks K4's gradient
+# passes through, are step functions of float math: no FMA contraction,
+# so both round exactly as the plain version does.
 SOURCES = {
     "preprocess.cu": ["-fmad=false"],
     "binning.cu": [],
     "composite.cu": [],
+    "preprocess_bwd.cu": ["-fmad=false"],
+    "composite_bwd.cu": [],
 }
-KERNELS = ("preprocess", "binning", "composite")
+FORWARD_KERNELS = ("preprocess", "binning", "composite")
+BACKWARD_KERNELS = ("preprocess_bwd", "composite_bwd")
+KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -51,9 +57,16 @@ _SIGNATURES = {
     "sdpgs_preprocess_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # packed_s, order, n_valid(dev), table, totals, num_tiles, tiles_x, K, D, stream
     "sdpgs_bin_table": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # payload, table, counts, values, final_t, n_visit, P, num_tiles, tiles_x,
-    # tile, K, alpha_min, alpha_max, t_min, stream
-    "sdpgs_composite_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    # payload, table, counts, values, final_t, n_visit, last_contrib, P,
+    # num_tiles, tiles_x, tile, K, alpha_min, alpha_max, t_min, stream
+    "sdpgs_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    # geo, sh, ct, cam(host [39]), dgeo, dsh, masks(or null), P, deg, width,
+    # height, near, low_pass, stream
+    "sdpgs_preprocess_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # payload, table, final_t, last_contrib, g_values, g_final_t, d_payload,
+    # stats(or null), P, num_tiles, tiles_x, tile, K, alpha_min, alpha_max,
+    # stream
+    "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 _lib = None
 
@@ -98,13 +111,15 @@ def build() -> Path:
         cmd = [nvcc, *ARCH, *COMMON, *flags, "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, objs = [], []
+    log, objs, failed = [], [], []
     for src, obj, proc in procs:
         out, _ = proc.communicate()
         log.append(f"== {src}\n{out}")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+            failed.append(f"nvcc failed on {src}:\n{out}")
         objs.append(str(obj))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     part = tmp / so.name
     link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(part), *objs],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -156,13 +171,16 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address; ``None`` passes a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
     """What a kernel takes: a contiguous CUDA tensor of this dtype and shape
-    that does not require grad (the port's rendering is forward-only)."""
+    that autograd does not track (a launcher sits inside the
+    ``autograd.Function`` that owns its gradient and is handed detached
+    tensors)."""
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -170,6 +188,7 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.requires_grad:
-        raise ValueError(f"{name}: the kernels are forward-only; input requires grad")
+        raise ValueError(f"{name}: a kernel launcher takes no tensor that requires "
+                         "grad; call it through its autograd.Function")
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")

@@ -36,7 +36,9 @@ def render_set(out_root: Path, name: str, iteration: int, cameras, gaussians,
     """reference render.py:27-80 output layout: ``renders/``, ``gt/``,
     ``depth/`` (.npy + .png) and ``feature/`` under
     ``<out_root>/<name>/ours_<iteration>``. Renders on ``device`` (``cuda``
-    unless the caller asks for another)."""
+    unless the caller asks for another), under ``torch.no_grad``."""
+    import torch
+
     from sdpgs_torch import default_device
     from sdpgs_torch.render import render
 
@@ -50,7 +52,8 @@ def render_set(out_root: Path, name: str, iteration: int, cameras, gaussians,
         d.mkdir(parents=True, exist_ok=True)
 
     for idx, cam in enumerate(cameras):
-        out = render(cam.camera, gaussians, raster_cfg, bg, sh_degree, device=dev)
+        with torch.no_grad():
+            out = render(cam.camera, gaussians, raster_cfg, bg, sh_degree, device=dev)
         fname = f"{idx:05d}.png"
         save_png(rdir / fname, out.color.cpu().numpy())
         if cam.image is not None:

@@ -5,7 +5,9 @@ parameters exactly like the reference (gaussian_model.py:26-65): log-scale,
 logit-opacity, unnormalized quaternion (w, x, y, z). The trainable fields
 are ``nn.Parameter``s; ``alive`` (float {0,1}) and ``confidence`` are
 buffers. Dead slots are neutralized by multiplying the activated opacity
-with ``alive``.
+with ``alive``. A cloud starts frozen (``requires_grad`` off), as a loaded
+cloud is served and a render then builds no graph; ``TrainState.create``
+turns gradients on.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class Gaussians(nn.Module):
         super().__init__()
         self.max_sh_degree = max_sh_degree
         for name in PARAM_FIELDS:
-            setattr(self, name, nn.Parameter(fields[name].float()))
+            setattr(self, name, nn.Parameter(fields[name].float(), requires_grad=False))
         for name in BUFFER_FIELDS:
             self.register_buffer(name, fields[name].float())
 
@@ -48,12 +50,13 @@ class Gaussians(nn.Module):
     def from_numpy(cls, arrays: Mapping[str, np.ndarray], max_sh_degree: int = 3,
                    device=None) -> "Gaussians":
         """Carry the JAX package's parameters across: ``arrays`` holds numpy
-        arrays keyed by the JAX ``Gaussians`` field names."""
+        arrays keyed by the JAX ``Gaussians`` field names (copied, so a train
+        step's in-place updates never write into them)."""
         from sdpgs_torch import default_device
 
         dev = default_device(device)
         return cls(max_sh_degree=max_sh_degree, **{
-            k: torch.as_tensor(np.asarray(arrays[k], np.float32), device=dev)
+            k: torch.tensor(np.asarray(arrays[k], np.float32), device=dev)
             for k in PARAM_FIELDS + BUFFER_FIELDS
         })
 

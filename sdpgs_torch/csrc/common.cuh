@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 
 #define SDPGS_API extern "C" __attribute__((visibility("default")))
+// Per-element math shared by a forward kernel and its backward.
+#define SDPGS_DEVICE __device__ __forceinline__
 
 // Payload row gathered by the compositor (rasterizer.py layout):
 // mean2d xy, conic abc, opacity*valid, rgb, depth, feature xyz.

@@ -9,9 +9,10 @@
 //   that would take its transmittance below 1e-4 (that entry is not added).
 // Outputs: 7 channels (rgb, depth, feature) and the final transmittance.
 //
-// Bound on the H100: f32 arithmetic on the CUDA cores, ~20 flops and one
-// exp per (entry, pixel) pair visited; the bytes (payload rows, the table,
-// the outputs) take a few microseconds at 3.35 TB/s.
+// Bound on the H100: f32 arithmetic on the CUDA cores: the alpha test
+// (~16 operations with one exp) for every (entry, pixel) pair visited and
+// the blend (~18) for the contributing ones; the bytes (payload rows, the
+// table, the outputs) take a few microseconds at 3.35 TB/s.
 //
 // Design: one block per tile, one thread per pixel (tile^2 <= 1024). The
 // block gathers its table row's payload rows into shared memory in
@@ -23,9 +24,19 @@
 // 1e-4 threshold can keep one contributor more or fewer than they do. The
 // block leaves once every pixel is done (__syncthreads_count) or the tile's
 // count is reached. Each pixel also records how many entries it evaluated
-// (n_visit), the work the run's data needed.
+// (n_visit), the work the run's data needed, and one past the last entry
+// it added (last_contrib), where K5's back-to-front sweep starts. Whether
+// an entry touches a pixel is decided by composite_math.cuh:entry_alpha,
+// the code K5 runs too.
+//
+// last_contrib is kept although n_visit could carry the same start with
+// the stop as its sign: measured on the H100 in one call, that encoding
+// left K3 at 32 registers with a spill and no faster (0.2698-0.2782 ms
+// against 0.2620-0.2746), while K5, which then also walks the entries
+// skipped past each pixel's last contributor (8% more pairs), ran 0.7175
+// against 0.6990 ms (PERF.md section 6).
 
-#include "common.cuh"
+#include "composite_math.cuh"
 
 namespace {
 
@@ -35,8 +46,8 @@ __global__ void __launch_bounds__(1024)
 composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ table,
                      const int* __restrict__ counts, float* __restrict__ values,
                      float* __restrict__ final_t, int* __restrict__ n_visit,
-                     int P, int tiles_x, int tile, int K, float alpha_min,
-                     float alpha_max, float t_min) {
+                     int* __restrict__ last_contrib, int P, int tiles_x, int tile, int K,
+                     float alpha_min, float alpha_max, float t_min) {
   __shared__ float s_pay[SDPGS_NPAY][kBatch];
   __shared__ int s_gid[kBatch];
   const int t = blockIdx.x;
@@ -52,7 +63,8 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
 #pragma unroll
   for (int ch = 0; ch < SDPGS_NCH; ++ch) acc[ch] = 0.0f;
   bool done = false;
-  int visited = 0;
+  int visited = count;  // every entry, unless the pixel stops early
+  int last = 0;
 
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     // also the barrier before the shared batch is overwritten
@@ -70,23 +82,23 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
     }
     __syncthreads();
     for (int e = 0; e < n && !done; ++e) {
-      ++visited;
-      const float dx = s_pay[0][e] - px;
-      const float dy = s_pay[1][e] - py;
-      const float ca = s_pay[2][e], cb = s_pay[3][e], cc = s_pay[4][e];
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      if (power > 0.0f) continue;
-      const float alpha = fminf(alpha_max, s_pay[5][e] * expf(power));
-      if (alpha < alpha_min) continue;
-      const float test = T * (1.0f - alpha);
+      sdpgs_comp::EntryAlpha ea;
+      if (!sdpgs_comp::entry_alpha(s_pay[0][e], s_pay[1][e], s_pay[2][e], s_pay[3][e],
+                                   s_pay[4][e], s_pay[5][e], px, py, alpha_min,
+                                   alpha_max, ea)) {
+        continue;
+      }
+      const float test = T * (1.0f - ea.alpha);
       if (test < t_min) {
         done = true;
+        visited = b0 + e + 1;
         break;
       }
-      const float w = alpha * T;
+      const float w = ea.alpha * T;
 #pragma unroll
       for (int ch = 0; ch < SDPGS_NCH; ++ch) acc[ch] += w * s_pay[6 + ch][e];
       T = test;
+      last = b0 + e + 1;
     }
   }
 
@@ -95,23 +107,25 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
   for (int ch = 0; ch < SDPGS_NCH; ++ch) values[o * SDPGS_NCH + ch] = acc[ch];
   final_t[o] = T;
   n_visit[o] = visited;
+  last_contrib[o] = last;
 }
 
 }  // namespace
 
 // payload [P+1, 13] f32 (row P = zero sentinel), table [num_tiles, K] i32
-// (entries outside [0, P] read as the sentinel), counts [num_tiles] i32 (<= K). values [num_tiles, tile^2, 7] f32,
-// final_t [num_tiles, tile^2] f32, n_visit [num_tiles, tile^2] i32.
+// (entries outside [0, P] read as the sentinel), counts [num_tiles] i32
+// (<= K). values [num_tiles, tile^2, 7] f32, final_t [num_tiles, tile^2]
+// f32, n_visit and last_contrib [num_tiles, tile^2] i32.
 SDPGS_API int sdpgs_composite_fwd(const float* payload, const int* table,
                                   const int* counts, float* values, float* final_t,
-                                  int* n_visit, int P, int num_tiles, int tiles_x,
-                                  int tile, int K, float alpha_min,
+                                  int* n_visit, int* last_contrib, int P, int num_tiles,
+                                  int tiles_x, int tile, int K, float alpha_min,
                                   float alpha_max, float t_min, void* stream) {
   const int npix = tile * tile;
   if (npix > 1024 || npix <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return 0;
   composite_fwd_kernel<<<num_tiles, npix, 0, static_cast<cudaStream_t>(stream)>>>(
-      payload, table, counts, values, final_t, n_visit, P, tiles_x, tile, K,
+      payload, table, counts, values, final_t, n_visit, last_contrib, P, tiles_x, tile, K,
       alpha_min, alpha_max, t_min);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,37 +18,13 @@
 // the same association order; the file is built with -fmad=false and IEEE
 // division/sqrt, so each float op rounds as the plain PyTorch ops do and
 // the step functions (radius = ceil(...), valid) agree with it exactly.
+// The arithmetic lives in preprocess_math.cuh, shared with K4.
 
-#include "common.cuh"
+#include "preprocess_math.cuh"
 
 namespace {
 
-struct CamVec {
-  float v[39];  // view(16) full_proj(16) fx fy tan_fovx tan_fovy pos(3)
-};
-
-constexpr float C0 = 0.28209479177387814f;
-constexpr float C1 = 0.4886025119029199f;
-constexpr float C2_0 = 1.0925484305920792f;
-constexpr float C2_1 = -1.0925484305920792f;
-constexpr float C2_2 = 0.31539156525252005f;
-constexpr float C2_3 = -1.0925484305920792f;
-constexpr float C2_4 = 0.5462742152960396f;
-constexpr float C3_0 = -0.5900435899266435f;
-constexpr float C3_1 = 2.890611442640554f;
-constexpr float C3_2 = -0.4570457994644658f;
-constexpr float C3_3 = 0.3731763325901154f;
-constexpr float C3_4 = -0.4570457994644658f;
-constexpr float C3_5 = 1.445305721320277f;
-constexpr float C3_6 = -0.5900435899266435f;
-
-// torch.clamp / clamp_min semantics: NaN propagates.
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return v != v ? v : fminf(fmaxf(v, lo), hi);
-}
-__device__ __forceinline__ float maxf_nan(float v, float lo) {
-  return v != v ? v : fmaxf(v, lo);
-}
+using sdpgs_pp::CamVec;
 
 template <int DEG>
 __global__ void __launch_bounds__(256)
@@ -58,131 +34,19 @@ preprocess_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ s
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   const size_t n = (size_t)P;
-  const float x = geo[0 * n + p], y = geo[1 * n + p], z = geo[2 * n + p];
-  const float s0 = geo[3 * n + p], s1 = geo[4 * n + p], s2 = geo[5 * n + p];
-  const float r = geo[6 * n + p], qx = geo[7 * n + p], qy = geo[8 * n + p],
-              qz = geo[9 * n + p];
-  const float alive = geo[10 * n + p];
-  const float* V = cam.v;
-  const float* FP = cam.v + 16;
-  const float fx = cam.v[32], fy = cam.v[33];
-  const float tan_fovx = cam.v[34], tan_fovy = cam.v[35];
-  const float cpx = cam.v[36], cpy = cam.v[37], cpz = cam.v[38];
-
-  const float tx = V[0] * x + V[1] * y + V[2] * z + V[3];
-  const float ty = V[4] * x + V[5] * y + V[6] * z + V[7];
-  const float tz = V[8] * x + V[9] * y + V[10] * z + V[11];
-  const float depth = tz;
-
-  const float hx = FP[0] * x + FP[1] * y + FP[2] * z + FP[3];
-  const float hy = FP[4] * x + FP[5] * y + FP[6] * z + FP[7];
-  const float hw = FP[12] * x + FP[13] * y + FP[14] * z + FP[15];
-  const float inv_w = 1.0f / (hw + 1e-7f);
-  const float mx = ((hx * inv_w + 1.0f) * (float)width - 1.0f) * 0.5f;
-  const float my = ((hy * inv_w + 1.0f) * (float)height - 1.0f) * 0.5f;
-
-  const float R00 = 1.0f - 2.0f * (qy * qy + qz * qz);
-  const float R01 = 2.0f * (qx * qy - r * qz);
-  const float R02 = 2.0f * (qx * qz + r * qy);
-  const float R10 = 2.0f * (qx * qy + r * qz);
-  const float R11 = 1.0f - 2.0f * (qx * qx + qz * qz);
-  const float R12 = 2.0f * (qy * qz - r * qx);
-  const float R20 = 2.0f * (qx * qz - r * qy);
-  const float R21 = 2.0f * (qy * qz + r * qx);
-  const float R22 = 1.0f - 2.0f * (qx * qx + qy * qy);
-
-  // A = W @ (R diag(s)), W the view rotation
-  float A[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    A[i][0] = (V[4 * i + 0] * R00 + V[4 * i + 1] * R10 + V[4 * i + 2] * R20) * s0;
-    A[i][1] = (V[4 * i + 0] * R01 + V[4 * i + 1] * R11 + V[4 * i + 2] * R21) * s1;
-    A[i][2] = (V[4 * i + 0] * R02 + V[4 * i + 1] * R12 + V[4 * i + 2] * R22) * s2;
-  }
-
-  const float lim_x = 1.3f * tan_fovx;
-  const float lim_y = 1.3f * tan_fovy;
-  const float tz_safe = fabsf(tz) < 1e-6f ? 1e-6f : tz;
-  const float cx = clampf(tx / tz_safe, -lim_x, lim_x) * tz_safe;
-  const float cy = clampf(ty / tz_safe, -lim_y, lim_y) * tz_safe;
-  const float j00 = fx / tz_safe;
-  const float j02 = -(fx * cx) / (tz_safe * tz_safe);
-  const float j11 = fy / tz_safe;
-  const float j12 = -(fy * cy) / (tz_safe * tz_safe);
-  const float m00 = j00 * A[0][0] + j02 * A[2][0];
-  const float m01 = j00 * A[0][1] + j02 * A[2][1];
-  const float m02 = j00 * A[0][2] + j02 * A[2][2];
-  const float m10 = j11 * A[1][0] + j12 * A[2][0];
-  const float m11 = j11 * A[1][1] + j12 * A[2][1];
-  const float m12 = j11 * A[1][2] + j12 * A[2][2];
-
-  const float a = m00 * m00 + m01 * m01 + m02 * m02 + low_pass;
-  const float b = m00 * m10 + m01 * m11 + m02 * m12;
-  const float c = m10 * m10 + m11 * m11 + m12 * m12 + low_pass;
-
-  const float det = a * c - b * b;
-  const float det_safe = det == 0.0f ? 1.0f : det;
-  const float inv_det = 1.0f / det_safe;
-  const float ca = c * inv_det, cb = -b * inv_det, cc = a * inv_det;
-
-  const float mid = 0.5f * (a + c);
-  const float disc = sqrtf(maxf_nan(mid * mid - det, 0.1f));
-  float radius = ceilf(3.0f * sqrtf(maxf_nan(mid + disc, 0.0f)));
-
-  const bool finite = isfinite(depth);
-  const float validf = (depth > near && det != 0.0f && radius > 0.0f &&
-                        alive > 0.0f && finite) ? 1.0f : 0.0f;
-  radius = radius * validf;
-
-  // SH colour at the normalized view direction
-  float dx = x - cpx, dy = y - cpy, dz = z - cpz;
-  const float inv_n = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz + 1e-24f);
-  dx = dx * inv_n;
-  dy = dy * inv_n;
-  dz = dz * inv_n;
-  const float xx = dx * dx, yy = dy * dy, zz = dz * dz;
-  const float xy = dx * dy, yz = dy * dz, xz = dx * dz;
-
-  float rgb[3];
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    auto coef = [&](int k) { return sh[(size_t)(3 * k + ch) * n + p]; };
-    float res = C0 * coef(0);
-    if (DEG > 0) {
-      res = res - C1 * dy * coef(1) + C1 * dz * coef(2) - C1 * dx * coef(3);
-    }
-    if (DEG > 1) {
-      res = res
-          + C2_0 * xy * coef(4)
-          + C2_1 * yz * coef(5)
-          + C2_2 * (2.0f * zz - xx - yy) * coef(6)
-          + C2_3 * xz * coef(7)
-          + C2_4 * (xx - yy) * coef(8);
-    }
-    if (DEG > 2) {
-      res = res
-          + C3_0 * dy * (3.0f * xx - yy) * coef(9)
-          + C3_1 * xy * dz * coef(10)
-          + C3_2 * dy * (4.0f * zz - xx - yy) * coef(11)
-          + C3_3 * dz * (2.0f * zz - 3.0f * xx - 3.0f * yy) * coef(12)
-          + C3_4 * dx * (4.0f * zz - xx - yy) * coef(13)
-          + C3_5 * dz * (xx - yy) * coef(14)
-          + C3_6 * dx * (xx - 3.0f * yy) * coef(15);
-    }
-    rgb[ch] = maxf_nan(res + 0.5f, 0.0f);
-  }
-
-  out[0 * n + p] = validf;
-  out[1 * n + p] = mx;
-  out[2 * n + p] = my;
-  out[3 * n + p] = depth;
-  out[4 * n + p] = ca;
-  out[5 * n + p] = cb;
-  out[6 * n + p] = cc;
-  out[7 * n + p] = radius;
-  out[8 * n + p] = rgb[0];
-  out[9 * n + p] = rgb[1];
-  out[10 * n + p] = rgb[2];
+  sdpgs_pp::Fwd f;
+  sdpgs_pp::forward<DEG>(geo, sh, n, p, cam, width, height, near, low_pass, f);
+  out[0 * n + p] = f.validf;
+  out[1 * n + p] = f.mx;
+  out[2 * n + p] = f.my;
+  out[3 * n + p] = f.tz;
+  out[4 * n + p] = f.ca;
+  out[5 * n + p] = f.cb;
+  out[6 * n + p] = f.cc;
+  out[7 * n + p] = f.radius;
+  out[8 * n + p] = f.rgb[0];
+  out[9 * n + p] = f.rgb[1];
+  out[10 * n + p] = f.rgb[2];
 }
 
 }  // namespace

@@ -9,7 +9,8 @@ skipping alpha < 1/255 or power > 0, and halting when transmittance would
 drop below 1e-4. A chunk of G entries x npix pixels takes a cumulative
 product of (1 - alpha) for each entry's incoming transmittance; a carried
 "done" flag keeps the exact contributor set across chunks. This is the
-plain version behind kernel K3 (``composite_cuda.py``).
+plain version behind kernels K3 and K5 (``composite_cuda.py``); autograd
+differentiates it (``cumprod`` has a gradient, as in composite_xla.py).
 """
 
 from __future__ import annotations
@@ -73,7 +74,11 @@ def composite_tiles(
         b = conic[:, sl, 1][:, :, None]
         c = conic[:, sl, 2][:, :, None]
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
-        alpha = torch.clamp_max(opacity[:, sl, None] * torch.exp(power), cfg.alpha_max)
+        # exp of min(power, 0): where power > 0 the entry is masked below,
+        # and exp(power) there could overflow and turn the masked zero
+        # gradient into 0 * inf = NaN
+        alpha = torch.clamp_max(opacity[:, sl, None] * torch.exp(torch.clamp_max(power, 0.0)),
+                                cfg.alpha_max)
         alpha = torch.where((power > 0.0) | (alpha < cfg.alpha_min),
                             torch.zeros_like(alpha), alpha)
         if rect is not None:

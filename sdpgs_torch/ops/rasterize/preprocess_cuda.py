@@ -1,19 +1,22 @@
-"""Fused preprocess + SH colour: kernel K1 (``csrc/preprocess.cu``) and its
-plain PyTorch version.
+"""Fused preprocess + SH colour: kernels K1 (``csrc/preprocess.cu``,
+forward) and K4 (``csrc/preprocess_bwd.cu``, its vjp) and their plain
+PyTorch versions.
 
 Counterpart of ``sdpgs_tpu/ops/rasterize/preprocess_pallas.py``. The whole
 per-Gaussian chain (world->view, projection, quaternion+scale -> EWA
 cov2D -> conic -> radius, culling, SH degree 0..3 with the +0.5 clamp)
 runs on row-major [rows, P] arrays: 11 geometry rows in, 11 rows out.
-:func:`_row_math` is the plain version, a copy of the JAX row math; the
-kernel repeats it operation by operation.
-
-Forward only: the backward kernel comes with the training slice.
+:func:`_row_math` is the plain version, a copy of the JAX row math; K1
+repeats it operation by operation, and K4 back-propagates through it by
+hand. On CUDA tensors :func:`preprocess_rows` is an ``autograd.Function``
+whose forward launches K1 and whose backward launches K4; on CPU tensors
+autograd runs through :func:`_row_math`.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from sdpgs_torch import _kernels
 from sdpgs_torch.core import sh as sh_lib
@@ -25,9 +28,10 @@ CAMN = 39    # view(16) full_proj(16) focal_x focal_y tan_fovx tan_fovy pos(3)
 
 
 def _row_math(geo, sh, cam, *, deg: int, width: int, height: int,
-              near: float, low_pass: float):
+              near: float, low_pass: float, aux: dict | None = None):
     """The preprocess+SH chain on [NGEO, N] geometry and [3*(deg+1)^2, N]
-    SH rows with the [CAMN] camera vector; returns NOUT [N] rows."""
+    SH rows with the [CAMN] camera vector; returns NOUT [N] rows. ``aux``,
+    when given, receives the values the backward's masks are decided on."""
     x, y, z = geo[0], geo[1], geo[2]
     s0, s1, s2 = geo[3], geo[4], geo[5]
     r, qx, qy, qz = geo[6], geo[7], geo[8], geo[9]
@@ -77,8 +81,9 @@ def _row_math(geo, sh, cam, *, deg: int, width: int, height: int,
     lim_x = 1.3 * tan_fovx
     lim_y = 1.3 * tan_fovy
     tz_safe = torch.where(torch.abs(tz) < 1e-6, torch.full_like(tz, 1e-6), tz)
-    cx = torch.clamp(tx / tz_safe, -lim_x, lim_x) * tz_safe
-    cy = torch.clamp(ty / tz_safe, -lim_y, lim_y) * tz_safe
+    ux, uy = tx / tz_safe, ty / tz_safe
+    cx = torch.clamp(ux, -lim_x, lim_x) * tz_safe
+    cy = torch.clamp(uy, -lim_y, lim_y) * tz_safe
     j00 = fx / tz_safe
     j02 = -(fx * cx) / (tz_safe * tz_safe)
     j11 = fy / tz_safe
@@ -152,7 +157,11 @@ def _row_math(geo, sh, cam, *, deg: int, width: int, height: int,
                         + C3[6] * dx * (xx - 3.0 * yy) * coef(15, ch)
                     )
         rgb.append(torch.clamp_min(res + 0.5, 0.0))
+        if aux is not None:
+            aux[f"res{ch}"] = res + 0.5
 
+    if aux is not None:
+        aux.update(ux=ux, uy=uy, lim_x=lim_x, lim_y=lim_y, tz=tz, det=det)
     return (validf, mx, my, depth, ca, cb, cc, radius, rgb[0], rgb[1], rgb[2])
 
 
@@ -169,7 +178,8 @@ def _cam_vec(cam) -> torch.Tensor:
 
 def preprocess_rows_plain(geoT, shT, cam_vec, deg: int, width: int, height: int,
                           near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
-    """Plain PyTorch version of K1: [NGEO, P], [3K, P] -> [NOUT, P]."""
+    """Plain PyTorch version of K1: [NGEO, P], [3K, P] -> [NOUT, P]; autograd
+    differentiates it (the plain version of K4)."""
     _kernels.plain_call("preprocess")
     cam = cam_vec.to(device=geoT.device, dtype=torch.float32)
     rows = _row_math(geoT, shT, cam, deg=deg, width=width, height=height,
@@ -177,24 +187,65 @@ def preprocess_rows_plain(geoT, shT, cam_vec, deg: int, width: int, height: int,
     return torch.stack(rows)
 
 
-def preprocess_rows(geoT, shT, cam_vec, deg: int, width: int, height: int,
-                    near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
-    """Kernel K1 on CUDA tensors, its plain version on CPU tensors.
+def preprocess_vjp_plain(geoT, shT, cam_vec, ct, deg: int, width: int, height: int,
+                         near: float = 0.2, low_pass: float = 0.3):
+    """Plain PyTorch version of K4: autograd's vjp of :func:`_row_math` at
+    cotangent ``ct`` [NOUT, P]; returns (d geoT, d shT)."""
+    _kernels.plain_call("preprocess_bwd")
+    with torch.enable_grad():
+        g = geoT.detach().requires_grad_()
+        s = shT.detach().requires_grad_()
+        cam = cam_vec.to(device=geoT.device, dtype=torch.float32)
+        rows = torch.stack(_row_math(g, s, cam, deg=deg, width=width, height=height,
+                                     near=near, low_pass=low_pass))
+        return torch.autograd.grad(rows, (g, s), ct)
 
-    geoT [NGEO, P] and shT [3*(deg+1)^2, P] f32; cam_vec [CAMN] (read on
-    the host: it is passed to the kernel by value). Returns [NOUT, P]."""
-    if not geoT.is_cuda:
-        return preprocess_rows_plain(geoT, shT, cam_vec, deg, width, height,
-                                     near, low_pass)
-    P = geoT.shape[1]
-    nsh = 3 * (deg + 1) ** 2
-    if not 0 <= deg <= 3:
-        raise ValueError(f"SH degree {deg} outside 0..3")
-    _kernels.check(geoT, "geoT", torch.float32, (NGEO, P))
-    _kernels.check(shT, "shT", torch.float32, (nsh, P))
+
+# Bits of K4's mask word (csrc/preprocess_math.cuh, kMask*).
+MASK_CLIP_X, MASK_CLIP_Y, MASK_TZ_SMALL, MASK_DET_ZERO, MASK_RGB0 = 1, 2, 4, 8, 16
+
+
+def row_masks_plain(geoT, shT, cam_vec, deg: int, width: int, height: int,
+                    near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
+    """The mask word K4 reports, from the plain version's own floats: which
+    side of each step function (clip, tz_safe, det_safe, rgb clamp) the
+    gradient of each Gaussian took. [P] int32."""
+    aux: dict = {}
+    cam = cam_vec.to(device=geoT.device, dtype=torch.float32)
+    with torch.no_grad():
+        _row_math(geoT, shT, cam, deg=deg, width=width, height=height, near=near,
+                  low_pass=low_pass, aux=aux)
+    ux, uy, lx, ly = aux["ux"], aux["uy"], aux["lim_x"], aux["lim_y"]
+    bits = [((ux >= -lx) & (ux <= lx), MASK_CLIP_X), ((uy >= -ly) & (uy <= ly), MASK_CLIP_Y),
+            (torch.abs(aux["tz"]) < 1e-6, MASK_TZ_SMALL), (aux["det"] == 0.0, MASK_DET_ZERO)]
+    bits += [(aux[f"res{ch}"] >= 0.0, MASK_RGB0 << ch) for ch in range(3)]
+    word = torch.zeros(geoT.shape[1], dtype=torch.int32, device=geoT.device)
+    for cond, bit in bits:
+        word |= cond.to(torch.int32) * bit
+    return word
+
+
+def _host_cam(cam_vec) -> torch.Tensor:
     cam_host = cam_vec.detach().to("cpu", torch.float32).contiguous()
     if tuple(cam_host.shape) != (CAMN,):
         raise ValueError(f"cam_vec: expected shape ({CAMN},), got {tuple(cam_host.shape)}")
+    return cam_host
+
+
+def _check_rows(geoT, shT, deg: int) -> None:
+    if not 0 <= deg <= 3:
+        raise ValueError(f"SH degree {deg} outside 0..3")
+    P = geoT.shape[1]
+    _kernels.check(geoT, "geoT", torch.float32, (NGEO, P))
+    _kernels.check(shT, "shT", torch.float32, (3 * (deg + 1) ** 2, P))
+
+
+def preprocess_rows_fwd(geoT, shT, cam_vec, deg: int, width: int, height: int,
+                        near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
+    """Launch K1 on CUDA tensors autograd does not track: [NOUT, P]."""
+    _check_rows(geoT, shT, deg)
+    cam_host = _host_cam(cam_vec)
+    P = geoT.shape[1]
     out = torch.empty((NOUT, P), dtype=torch.float32, device=geoT.device)
     _kernels.launch(
         "preprocess", "sdpgs_preprocess_fwd",
@@ -203,6 +254,63 @@ def preprocess_rows(geoT, shT, cam_vec, deg: int, width: int, height: int,
         _kernels.stream(geoT.device),
     )
     return out
+
+
+def preprocess_rows_bwd(geoT, shT, cam_vec, ct, deg: int, width: int, height: int,
+                        near: float = 0.2, low_pass: float = 0.3, masks=None):
+    """Launch K4: the vjp of K1 at cotangent ``ct`` [NOUT, P] on CUDA
+    tensors autograd does not track; returns (d geoT, d shT). ``masks``, an
+    int32 [P] tensor, receives each Gaussian's mask word when given."""
+    _check_rows(geoT, shT, deg)
+    P = geoT.shape[1]
+    _kernels.check(ct, "ct", torch.float32, (NOUT, P))
+    if masks is not None:
+        _kernels.check(masks, "masks", torch.int32, (P,))
+    cam_host = _host_cam(cam_vec)
+    dgeo = torch.empty_like(geoT)
+    dsh = torch.empty_like(shT)
+    _kernels.launch(
+        "preprocess_bwd", "sdpgs_preprocess_bwd",
+        _kernels.ptr(geoT), _kernels.ptr(shT), _kernels.ptr(ct), _kernels.ptr(cam_host),
+        _kernels.ptr(dgeo), _kernels.ptr(dsh), _kernels.ptr(masks), P, deg, int(width),
+        int(height), float(near), float(low_pass), _kernels.stream(geoT.device),
+    )
+    return dgeo, dsh
+
+
+class _PreprocessRows(torch.autograd.Function):
+    """K1 forward, K4 backward. The launchers get detached tensors (no
+    copy): autograd tracks them here, not inside a kernel."""
+
+    @staticmethod
+    def forward(ctx, geoT, shT, cam_vec, deg, width, height, near, low_pass):
+        geoT, shT = geoT.detach(), shT.detach()
+        ctx.save_for_backward(geoT, shT)
+        ctx.args = (_host_cam(cam_vec), deg, width, height, near, low_pass)
+        return preprocess_rows_fwd(geoT, shT, *ctx.args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        geoT, shT = ctx.saved_tensors
+        cam_host, deg, width, height, near, low_pass = ctx.args
+        dgeo, dsh = preprocess_rows_bwd(geoT, shT, cam_host, ct.contiguous(), deg, width,
+                                        height, near, low_pass)
+        return dgeo, dsh, None, None, None, None, None, None
+
+
+def preprocess_rows(geoT, shT, cam_vec, deg: int, width: int, height: int,
+                    near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
+    """K1 (backward K4) on CUDA tensors, the plain version on CPU tensors.
+
+    geoT [NGEO, P] and shT [3*(deg+1)^2, P] f32; cam_vec [CAMN] (read on
+    the host: it is passed to the kernels by value). Returns [NOUT, P],
+    differentiable with respect to geoT and shT."""
+    if not geoT.is_cuda:
+        return preprocess_rows_plain(geoT, shT, cam_vec, deg, width, height,
+                                     near, low_pass)
+    return _PreprocessRows.apply(geoT, shT, cam_vec, deg, int(width), int(height),
+                                 float(near), float(low_pass))
 
 
 def pack_rows(xyz, scale, quat, features, alive, sh_degree: int):
@@ -219,7 +327,8 @@ def pack_rows(xyz, scale, quat, features, alive, sh_degree: int):
 def preprocess_color(xyz, scale, quat, features, alive, cam, sh_degree: int,
                      near: float = 0.2, low_pass: float = 0.3
                      ) -> tuple[Preprocessed, torch.Tensor]:
-    """Fused preprocess + SH colour; returns (Preprocessed, color [P, 3])."""
+    """Fused preprocess + SH colour; returns (Preprocessed, color [P, 3]),
+    differentiable with respect to xyz, scale, quat and features."""
     geoT, shT = pack_rows(xyz, scale, quat, features, alive, sh_degree)
     out = preprocess_rows(geoT, shT, _cam_vec(cam), sh_degree, int(cam.width),
                           int(cam.height), near, low_pass)

@@ -1,9 +1,10 @@
 """Rasterizer API: preprocess -> bin -> gather + composite -> image.
 
-Counterpart of ``sdpgs_tpu/ops/rasterize/rasterizer.py``, forward only:
-the extended outputs the framework consumes (reference
-gaussian_renderer/__init__.py:315-326): color, expected depth, alpha,
-3-channel feature image, radii, plus capacity telemetry.
+Counterpart of ``sdpgs_tpu/ops/rasterize/rasterizer.py``: the extended
+outputs the framework consumes (reference gaussian_renderer/__init__.py:
+315-326): color, expected depth, alpha, 3-channel feature image, radii,
+plus capacity telemetry. ``rasterize`` is differentiable: gradients flow
+through the payload (K3/K5 on CUDA); binning consumes detached geometry.
 """
 
 from __future__ import annotations
@@ -76,8 +77,10 @@ def rasterize_tiles(
     mean2d = prep.mean2d
     if means2d_offset is not None:
         mean2d = mean2d + means2d_offset
-    bins = binning_lib.bin_gaussians(prep._replace(mean2d=mean2d), cam.width,
-                                     cam.height, cfg)
+    # binning consumes geometry only; gradients flow through the payload
+    bins = binning_lib.bin_gaussians(
+        Preprocessed(*(t.detach() for t in prep._replace(mean2d=mean2d))),
+        cam.width, cam.height, cfg)
     if feature_weight is not None:
         feature = feature * feature_weight[:, None]
     payload = make_payload(prep._replace(mean2d=mean2d), opacity, color, feature)
@@ -87,7 +90,6 @@ def rasterize_tiles(
     return out, bins, prep
 
 
-@torch.no_grad()
 def rasterize(
     xyz: torch.Tensor,          # [P, 3]
     cov3d: Optional[torch.Tensor],  # [P, 3, 3] world covariance
@@ -103,11 +105,14 @@ def rasterize(
     prep: Optional[Preprocessed] = None,
     device=None,
 ) -> RenderOutput:
-    """Render one view (forward only, under ``torch.no_grad``) on ``device``
-    (``cuda`` unless the caller asks for another); the inputs must already
-    live there. ``prep`` (kernel K1's output) takes the place of the
-    plain preprocess from ``cov3d``; ``feature_weight`` scales the feature
-    channels per Gaussian (the reference's ``confidence``)."""
+    """Differentiable render of one view on ``device`` (``cuda`` unless the
+    caller asks for another); the inputs must already live there. ``prep``
+    (kernel K1's output) takes the place of the plain preprocess from
+    ``cov3d``; ``feature_weight`` scales the feature channels per Gaussian
+    (the reference's ``confidence``). ``means2d_offset`` [P, 2] (zeros) is
+    added to the screen centres: its gradient is the per-Gaussian
+    screen-space gradient the densification statistics read (reference
+    gaussian_renderer/__init__.py:217-221)."""
     dev = default_device(device)
     _check_device(dev, xyz, opacity, color, feature, alive)
     cam = cam.to(dev)
@@ -126,8 +131,8 @@ def rasterize(
         depth=vals[..., 3],
         alpha=1.0 - final_t,
         feature=vals[..., 4:7],
-        radii=prep.radius,
-        visibility=prep.radius > 0.0,
+        radii=prep.radius.detach(),
+        visibility=prep.radius.detach() > 0.0,
         overflow=bins.overflow,
         clipped=bins.clipped,
         slab=torch.zeros((), dtype=torch.int32, device=dev),

@@ -21,12 +21,15 @@ from sdpgs_torch import _kernels, default_device
 from sdpgs_torch import render as trender
 from sdpgs_torch.cli.render_cli import render_set
 from sdpgs_torch.config import RasterizeConfig as TConfig
+from sdpgs_torch.config import TrainConfig
 from sdpgs_torch.core.camera import Camera as TCamera
 from sdpgs_torch.core.gaussians import Gaussians
 from sdpgs_torch.core.transforms import build_covariance_3d, normalize_quat
 from sdpgs_torch.data.camera_utils import LoadedCamera
 from sdpgs_torch.data.ply import load_gaussians_ply
 from sdpgs_torch.ops.rasterize.rasterizer import rasterize, rasterize_naive
+from sdpgs_torch.train.state import TrainState
+from sdpgs_torch.train.step import ViewBatch, make_train_step
 from test_torch_core import jax_gaussians, random_arrays
 
 REPO = Path(__file__).resolve().parent.parent
@@ -183,7 +186,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("bad,match", [
     ("dtype", "expected torch.int32"), ("shape", "expected shape"),
-    ("strided", "contiguous"), ("grad", "forward-only"), ("cpu", "CUDA tensor"),
+    ("strided", "contiguous"), ("grad", "requires grad"), ("cpu", "CUDA tensor"),
 ])
 def test_kernel_input_checks(bad, match):
     """What a wrapper refuses before it launches; a CPU tensor is refused
@@ -206,6 +209,11 @@ def test_entry_points_refuse_cpu_without_request(rng, tmp_path, monkeypatch):
     g = Gaussians.from_numpy(arrays, device="cpu")
     cam = TCamera.create(**CAM, device="cpu")
     cfg = TConfig(**CONFIGS["roomy"])
+    state = TrainState.create(Gaussians.from_numpy(arrays, device="cpu"), device="cpu")
+    batch = ViewBatch(cameras=[cam], image=torch.zeros((1, 3, 56, 72)),
+                      depth_mono=torch.ones((1, 56, 72)), feature=torch.zeros((1, 3, 56, 72)),
+                      seg_map=torch.zeros((1, 56, 72), dtype=torch.int32))
+    step = make_train_step(TrainConfig(raster=cfg), 3)
     calls = [
         lambda: default_device(),
         lambda: load_gaussians_ply(ply, 32),
@@ -213,6 +221,8 @@ def test_entry_points_refuse_cpu_without_request(rng, tmp_path, monkeypatch):
         lambda: TCamera.create(**CAM),
         lambda: trender.render(cam, g, cfg, np.zeros(3), 3),
         lambda: render_set(tmp_path, "x", 0, [], g, cfg, np.zeros(3), 3),
+        lambda: TrainState.create(g),
+        lambda: step(state, batch, torch.ones((4, 3)), torch.zeros(3), 1.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
