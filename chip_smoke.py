@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the port's five kernels from ``sdpgs_torch/csrc/`` with nvcc and
-drives its two paths at the LLFF protocol's size (504x378, capacity
-131,072, 60,000 alive, SH degree 3), clouds made from a seed:
+Builds the port's six kernels from ``sdpgs_torch/csrc/`` with nvcc and
+drives its three paths at the LLFF protocol's size (504x378, capacity
+131,072, 60,000 alive, SH degree 3), clouds, images and weights made from
+a seed:
 
 - serving: a trained-like cloud is written as a PLY and loaded back on the
   card; each kernel (K1-K3 forward, K4-K5 backward) is held against its
@@ -16,13 +17,24 @@ drives its two paths at the LLFF protocol's size (504x378, capacity
 - training: one train step on the card against the same step on the CPU
   at a reduced size, then 30 plain train steps (``make_train_step``) on a
   perturbed copy of a ground-truth cloud, which must lower L1 and launch
-  each of K1-K5 once per step and no plain version.
+  each of K1-K5 once per step and no plain version;
+- pseudo-view training: K6 (the reprojection z-buffer) bit-identical to its
+  plain version on 64 pseudo cameras x 3 train views and on edge pairs;
+  the DPT-Hybrid depth net (random weights, seed 0) on the card against
+  the CPU, and in bf16 against f32; one pseudo step on the card against
+  the CPU at a reduced size; then, from iteration 4500, 30 pseudo steps
+  (``make_train_step(with_pseudo=True)``) with the depth net in the loss,
+  whose pseudo cameras come from one K6 prefetch of 64: K1-K5 must launch
+  twice per step, K6 once, and no plain version; the loss must fall below
+  0.96x its start, and L1 below 0.9x in the same steps without the depth
+  net.
 
-It then times each kernel, its plain version, a render and a train step,
-and profiles both. Every phase raises on failure, so the script exits
-non-zero and prints no ``ok`` line; it refuses to run without a CUDA
-device. The card's name and power limit are printed first; the last two
-lines are the ``kernels`` JSON record and the ``ok`` JSON line.
+It then times each kernel, its plain version, a render, a train step and
+a pseudo step, and profiles them. Every phase raises on failure, so the
+script exits non-zero and prints no ``ok`` line; it refuses to run
+without a CUDA device. The card's name and power limit are printed first;
+the last two lines are the ``kernels`` JSON record and the ``ok`` JSON
+line.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from sdpgs_torch.models.dpt import DPTArch
 
 WIDTH, HEIGHT = 504, 378      # LLFF at resolution /8
 CAPACITY = 1 << 17            # Gaussian slots
@@ -66,6 +80,34 @@ L1_MARGIN = 0.9               # mean L1 of the last cycle < 0.9 x the first's
 SMALL = dict(width=WIDTH // 4, height=HEIGHT // 4, capacity=1 << 14, alive=ALIVE // 8)
 STEP_GRAD_TOL = 1e-3          # card vs CPU step: gradients within 1e-3 of the field max
 STEP_METRIC_RTOL = 1e-4       # card vs CPU step: loss, L1, PSNR
+WARP_OPS = 28                 # K6 per source row: 3 rows of 3 mul + 3 add, 2 div, 2 rint,
+                              # 6 compares
+PSEUDO_START = 4500           # the pseudo phases start here: every pseudo term live
+PSEUDO_STEPS = 30             # full-width pseudo steps, cycling the train cameras
+BASELINE_FAR = 1.5            # edge pair: |du| ~ fx b / z > 128, outside the TPU window
+DPT_FWD_TOL = 1e-3            # depth net, card vs CPU in f32: of the output's range
+# Its input gradient at a random cotangent is ill-conditioned in f32: the
+# card's, the CPU's (with or without oneDNN) each differ from a float64 run
+# by 1.0-1.2% in the norm, while their outputs agree to 6e-6 of the range.
+# So the card's gradient is held to the float64 run on the CPU, no further
+# from it than the CPU's own f32 gradient, with this margin.
+DPT_GRAD_MARGIN = 1.5
+DPT_BF16_CORR = 0.98          # bf16 against f32 on the card: the Pearson of the two maps
+                              # (the loss reads the net through a Pearson; 0.9917 in the
+                              # first run, 10% of the range apart in the norm)
+PSEUDO_GRAD_TOL = 2e-2        # pseudo step card vs CPU, |g_card - g_cpu| / |g_cpu| per
+                              # field: the steps inherit the depth net's f32 input
+                              # gradient, 1.0-1.2% off float64 in the norm on each
+                              # device and 1.36% apart (above); read 1.3-1.6%
+# bf16's input gradient through the full DPT-Hybrid on random weights is
+# noise (the f32 one is ~1% off float64; bf16's unit roundoff is 2^16
+# times f32's), so bf16's backward is held on DPTArch.tiny_hybrid, where
+# bf16 is ~21% off f32 on the CPU: the card's bf16 input gradient no
+# further from its f32 one than this margin times the CPU's.
+DPT_BF16_GRAD_MARGIN = 1.25
+PSEUDO_LOSS_MARGIN = 0.96     # 30 pseudo steps: mean loss of the last cycle < 0.96 x the
+                              # first's (read 1.06301 -> 0.99164, 0.933)
+DPT_ARCH = DPTArch.hybrid()   # the reference's depth net
 
 
 def card_line() -> str:
@@ -406,14 +448,14 @@ def train_scene(rng, dev, width: int, height: int, capacity: int, alive: int):
 
     gt = make_cloud(rng, alive, capacity)
     g = Gaussians.from_numpy(gt, device=dev)
-    cams = [Camera.create(R=np.eye(3), T=np.array([0.1 * i - 0.1, 0.0, 0.0]), fovx=0.9,
-                          fovy=0.7, width=width, height=height, device="cpu")
-            for i in range(TRAIN_CAMS)]
+    Ts = [np.array([0.1 * i - 0.1, 0.0, 0.0]) for i in range(TRAIN_CAMS)]
+    cams = [Camera.create(R=np.eye(3), T=T, fovx=0.9, fovy=0.7, width=width, height=height,
+                          device="cpu") for T in Ts]
     with torch.no_grad():
         outs = [render(c, g, RasterizeConfig(), torch.zeros(3, device=dev), SH_DEGREE,
                        device=dev) for c in cams]
     data = dict(
-        cams=cams,
+        cams=cams, Rs=[np.eye(3)] * TRAIN_CAMS, Ts=Ts,
         image=torch.stack([o.color.permute(2, 0, 1) for o in outs]),
         depth_mono=torch.stack([o.depth for o in outs]),
         feature=torch.stack([o.feature.permute(2, 0, 1) for o in outs]),
@@ -511,14 +553,398 @@ def train_phase(rng, dev) -> dict:
           f"{TRAIN_WARMUP} warm-up; min {min(times[TRAIN_WARMUP:]):.3f}, max "
           f"{max(times[TRAIN_WARMUP:]):.3f}), {1e3 / step_ms:.1f} steps/s; peak device "
           f"memory {peak / 2**20:.1f} MiB")
-    require(all(launches[k] == TRAIN_STEPS for k in _kernels.KERNELS),
+    require(all(launches[k] == TRAIN_STEPS
+                for k in _kernels.FORWARD_KERNELS + _kernels.BACKWARD_KERNELS),
             "a kernel was not launched once per train step")
+    require(not any(launches[k] for k in _kernels.WARP_KERNELS),
+            "a warp kernel ran on the plain train path")
     require(not any(plain.values()), "a plain version ran on the train path")
     require(all(bool(torch.isfinite(p).all()) for p in state.gaussians.parameters()),
             "non-finite parameters after training")
     require(last < L1_MARGIN * first, f"L1 did not fall below {L1_MARGIN} x its start")
     prof = profile_calls(lambda b: step(state, b, protos, bg, 1.0, device=dev), batches, "step")
     return dict(launches=launches, step_ms=step_ms, peak=peak, **prof)
+
+
+def range_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| over the range of ``ref``."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / (ref.max() - ref.min()).clamp_min(1e-30))
+
+
+def spread_errs(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max |got - ref| over the range of ``ref``, |got - ref| / |ref| in
+    the L2 norm)."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    diff = (got - ref).abs()
+    span = (ref.max() - ref.min()).clamp_min(1e-30)
+    return float(diff.max() / span), float(diff.norm() / ref.norm().clamp_min(1e-30))
+
+
+def pseudo_geometry(data: dict, n: int, seed: int):
+    """The train views' K, world -> camera R and t, and ``n`` pseudo cameras
+    from ``generate_random_poses_llff`` around them, the scene's depth range
+    as bounds (scene.py:133-147,191-200). Cameras stay on the host."""
+    from sdpgs_torch.core.camera import Camera
+    from sdpgs_torch.data.pose_sampling import generate_random_poses_llff
+
+    cams = data["cams"]
+    depth = data["depth_mono"].cpu().numpy()
+    bounds = np.stack([np.percentile(d[d > 0], [1.0, 99.0]) for d in depth])
+    poses = generate_random_poses_llff(data["Rs"], data["Ts"], bounds, n_poses=n,
+                                       rng=np.random.default_rng(seed))
+    pcams = [Camera.create(R=p[:3, :3].T, T=p[:3, 3], fovx=0.9, fovy=0.7, width=cams[0].width,
+                           height=cams[0].height, device="cpu") for p in poses]
+    K = cams[0].intrinsics_matrix()
+    R_train = torch.stack([c.view[:3, :3] for c in cams])
+    t_train = torch.stack([c.view[:3, 3] for c in cams])
+    return K, R_train, t_train, pcams
+
+
+def k6_versus_plain(depths, pc, label: str) -> dict:
+    """K6 and its plain version on the same [proj | c] rows: bit-identical
+    z-buffers; prints the valid rows, the filled pixels, the rows that lost
+    the min and the largest displacement."""
+    from sdpgs_torch.ops import warp
+
+    V, H, W = depths.shape
+    out_k = warp.warp_zbuffer_rows(depths, pc)
+    out_p = warp.warp_zbuffer_rows_plain(depths, pc)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out_k, out_p))
+    err = float((out_k - out_p).abs().max())
+    u, v, z, valid = warp.project_rows(depths, pc)
+    n = pc.shape[0]
+    xs = torch.arange(H * W, device=depths.device) % W
+    n_valid = int(valid.sum())
+    filled = int((out_p > 0).sum())
+    max_du = int(torch.where(valid, (u - xs).abs(), 0).max()) if n_valid else 0
+    print(f"  K6 [{label}]: {n} pairs at {W}x{H}, rows {n * H * W}, valid {n_valid}, filled "
+          f"pixels {filled}, rows that lost the min {n_valid - filled}, holes in the source "
+          f"{int((depths == 0).sum())}, max |du| {max_du} px; bit-identical {same}")
+    require(same, f"K6 disagrees with its plain version [{label}]")
+    require(n_valid > 0 and filled > 0, f"K6 [{label}] scattered nothing")
+    return dict(err=err, max_du=max_du)
+
+
+def check_warp(data: dict, dev) -> dict:
+    """K6 against its plain version on the card at the prefetch's shape
+    (REPROJ_PREFETCH pseudo cameras x 3 train views), then on a pair whose
+    baseline puts displacements past the TPU kernel's 128-pixel window, and
+    on one with source holes and rows out of frame."""
+    from sdpgs_torch.ops import warp
+    from sdpgs_torch.train.loop import REPROJ_PREFETCH
+
+    with torch.no_grad():
+        depths = data["depth_mono"].contiguous()
+        K, R_train, t_train, pcams = pseudo_geometry(data, REPROJ_PREFETCH, seed=1)
+        R_p = torch.stack([c.view[:3, :3] for c in pcams]).to(dev)
+        t_p = torch.stack([c.view[:3, 3] for c in pcams]).to(dev)
+        geo = (K.to(dev), R_train.to(dev), t_train.to(dev))
+        pc = warp.pair_rows(*geo, R_p, t_p)
+        main = k6_versus_plain(depths, pc, f"{REPROJ_PREFETCH} pseudo cameras")
+        eye = torch.eye(3, device=dev)[None]
+        far = warp.pair_rows(geo[0], geo[1][:1], geo[2][:1], eye,
+                             geo[2][:1] + torch.tensor([[BASELINE_FAR, 0.0, 0.0]], device=dev))
+        wide = k6_versus_plain(depths[:1].contiguous(), far, "wide baseline")
+        err = max(main["err"], wide["err"])
+        require(wide["max_du"] > 128, "the wide-baseline pair stayed inside 128 px")
+        holes = depths[:1].clone()
+        H, W = holes.shape[-2:]
+        holes[:, H // 4:H // 2, W // 4:W // 2] = 0.0
+        tilt = torch.tensor([[0.8, 0.0, 0.6], [0.0, 1.0, 0.0], [-0.6, 0.0, 0.8]], device=dev)
+        edge = warp.pair_rows(geo[0], geo[1][:1], geo[2][:1], tilt[None],
+                              torch.tensor([[0.4, 0.3, -0.5]], device=dev))
+        err = max(err, k6_versus_plain(holes, edge, "holes, out of frame")["err"])
+    n_rows = pc.shape[0] * depths[0].numel()
+    return dict(depths=depths, pc=pc, rows=n_rows, err=err)
+
+
+def check_depth_net(data: dict, dev) -> dict:
+    """The depth net (random weights, seed 0) on the card against the CPU in
+    f32: the output, and the input gradient at a seeded cotangent held to a
+    float64 run, on one full-width image; then bf16 against f32 on the
+    card: the output, and the input gradient on tiny_hybrid against the
+    CPU's."""
+    from sdpgs_torch.models.depth_estimator import MonoDepth, mono_depth_from_params
+    from sdpgs_torch.models.dpt import random_params
+
+    arch = DPT_ARCH
+    raw = random_params(arch, seed=0)
+    img = data["image"][0].detach()
+    cot = torch.randn(img.shape[1:], generator=torch.Generator().manual_seed(4))
+    res = []
+    for d, dtype in ((dev, torch.float32), (torch.device("cpu"), torch.float32),
+                     (torch.device("cpu"), torch.float64)):
+        mono = mono_depth_from_params(raw, arch=arch, device=d)
+        if dtype == torch.float64:
+            mono = MonoDepth(mono.net.double())
+        x = img.to(d, dtype).clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        y = mono(x)
+        (g,) = torch.autograd.grad(y, x, cot.to(d, dtype))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res.append((y.detach().cpu(), g.cpu(), time.perf_counter() - t0))
+        del mono
+    (y_c, g_c, t_c), (y_p, g_p, t_p), (_, g_64, _) = res
+    fwd = range_err(y_c, y_p)
+    l2_c = float((g_c.double() - g_64).norm() / g_64.norm())
+    l2_p = float((g_p.double() - g_64).norm() / g_64.norm())
+    l2_cp = float((g_c - g_p).norm() / g_p.norm())
+    mono_bf = mono_depth_from_params(raw, arch=arch, dtype=torch.bfloat16, device=dev)
+    x = img.to(dev).clone().requires_grad_(True)
+    y_bf = mono_bf(x)
+    (g_bf,) = torch.autograd.grad(y_bf, x, cot.to(dev))
+    y_bf = y_bf.detach().cpu()
+    bf_grad_full = float((g_bf.double().cpu() - g_c).norm() / g_c.norm())
+    del mono_bf
+    bf_max, bf_l2 = spread_errs(y_bf, y_c)
+    bf_corr = float(torch.corrcoef(torch.stack([y_bf.reshape(-1), y_c.reshape(-1)]))[0, 1])
+    tiny = random_params(DPTArch.tiny_hybrid(), seed=0)
+    bf_grad = {d.type: bf16_grad_err(tiny, img, cot, d) for d in (dev, torch.device("cpu"))}
+    print(f"depth net ({'DPT-Hybrid' if arch == DPTArch.hybrid() else arch}, seed 0) at "
+          f"{img.shape[2]}x{img.shape[1]}: card vs CPU in f32, output {fwd:.2e} of its range "
+          f"(limit {DPT_FWD_TOL:g}); input gradient against a float64 run on the CPU, in the "
+          f"norm: card {l2_c:.3e}, CPU f32 {l2_p:.3e} (card limit {DPT_GRAD_MARGIN}x the CPU's), "
+          f"card vs CPU {l2_cp:.3e}; output range {float(y_p.max() - y_p.min()):.3e}; bf16 vs "
+          f"f32 on the card: max {bf_max:.2e} of the range, {bf_l2:.2e} in the norm, Pearson "
+          f"{bf_corr:.5f} (limit {DPT_BF16_CORR}), input gradient {bf_grad_full:.3f} in the norm "
+          f"(noise: held on tiny_hybrid); tiny_hybrid's bf16 input gradient vs its f32 one: card "
+          f"{bf_grad[dev.type]:.4f}, CPU {bf_grad['cpu']:.4f} (card limit "
+          f"{DPT_BF16_GRAD_MARGIN}x the CPU's); forward + input gradient {t_c:.3f} s on the "
+          f"card (first call), {t_p:.1f} s on the CPU")
+    require(bool(torch.isfinite(y_c).all() and torch.isfinite(g_c).all()),
+            "depth net output or gradient not finite")
+    require(float(g_c.abs().max()) > 0, "no gradient reached the image")
+    require(fwd <= DPT_FWD_TOL and l2_c <= DPT_GRAD_MARGIN * l2_p,
+            "depth net: the card strays from the CPU")
+    require(bf_corr >= DPT_BF16_CORR, "depth net: bf16 strays from f32")
+    require(0 < bf_grad[dev.type] <= DPT_BF16_GRAD_MARGIN * bf_grad["cpu"],
+            "depth net: the card's bf16 backward strays further from f32 than the CPU's")
+    return dict(raw=raw, cpu_s=t_p)
+
+
+def bf16_grad_err(raw: dict, img: torch.Tensor, cot: torch.Tensor, dev) -> float:
+    """|g_bf16 - g_f32| / |g_f32| of tiny_hybrid's input gradient at ``cot``
+    on ``dev``."""
+    from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+
+    grads = []
+    for dtype in (None, torch.bfloat16):
+        mono = mono_depth_from_params(raw, arch=DPTArch.tiny_hybrid(), dtype=dtype, device=dev)
+        x = img.to(dev).clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(mono(x), x, cot.to(dev))
+        grads.append(g.double().cpu())
+    return float((grads[1] - grads[0]).norm() / grads[0].norm())
+
+
+def cycle_means(values: list) -> tuple:
+    """The mean of the first and of the last cycle of the train cameras."""
+    return statistics.mean(values[:TRAIN_CAMS]), statistics.mean(values[-TRAIN_CAMS:])
+
+
+def pseudo_inputs(data, dev, cam, fused, weight, K, R_train, t_train):
+    from sdpgs_torch.train.step import PseudoInputs
+
+    return PseudoInputs(camera=cam, train_depths=data["depth_mono"].to(dev), K=K.to(dev),
+                        R_train=R_train.to(dev), t_train=t_train.to(dev),
+                        R_pseudo=cam.view[:3, :3].to(dev), t_pseudo=cam.view[:3, 3].to(dev),
+                        reproj_fused=fused, reproj_weight=weight)
+
+
+def pseudo_terms(state, pseudo, protos, bg, tcfg, mono, dev) -> dict:
+    """The three pseudo terms, weighted, at this state: the reprojection,
+    the depth net's Pearson and the segment Pearson."""
+    from sdpgs_torch.render import render
+    from sdpgs_torch.train.step import _pseudo_losses
+
+    with torch.no_grad():
+        out = render(pseudo.camera, state.gaussians, tcfg.raster, bg, SH_DEGREE, device=dev)
+        full = _pseudo_losses(out, pseudo, protos, tcfg, state.step, mono)
+        reproj = _pseudo_losses(out, pseudo, protos, tcfg, state.step, None)
+        below = _pseudo_losses(out, pseudo, protos, tcfg, 4000, mono)
+    return dict(reproj=float(reproj), mono=float(below - reproj), seg=float(full - below))
+
+
+def check_pseudo_step_card_vs_cpu(rng, dev, raw) -> None:
+    """One pseudo step from the same state at iteration PSEUDO_START on the
+    card (kernels) and on the CPU (plain versions) at a reduced size, the
+    depth net in f32: gradients, metrics and the fused z-buffer."""
+    from sdpgs_torch.config import TrainConfig
+    from sdpgs_torch.core.gaussians import Gaussians
+    from sdpgs_torch.losses import reproject_fused_depth
+    from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+    from sdpgs_torch.opt.adam import TRAINABLE
+    from sdpgs_torch.train.state import TrainState
+    from sdpgs_torch.train.step import loss_and_grads, make_train_step
+
+    trainee, data = train_scene(rng, dev, **SMALL)
+    K, R_train, t_train, pcams = pseudo_geometry(data, 1, seed=3)
+    tcfg = TrainConfig()
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        state = TrainState.create(Gaussians.from_numpy(trainee, device=d), device=d)
+        state.step = PSEUDO_START
+        mono = mono_depth_from_params(raw, arch=DPT_ARCH, device=d)
+        depths = data["depth_mono"].to(d)
+        f, w = reproject_fused_depth(depths, K.to(d), R_train.to(d), t_train.to(d),
+                                     pcams[0].view[:3, :3].to(d), pcams[0].view[:3, 3].to(d))
+        pseudo = pseudo_inputs(data, d, pcams[0], f, w, K, R_train, t_train)
+        batch, protos, bg = view_batch(data, 0, d), data["protos"].to(d), torch.zeros(3, device=d)
+        terms = pseudo_terms(state, pseudo, protos, bg, tcfg, mono, d)
+        grads = loss_and_grads(state, batch, protos, bg, tcfg, SH_DEGREE, d, pseudo=pseudo,
+                               mono_depth_fn=mono)
+        _, m = make_train_step(tcfg, SH_DEGREE, with_pseudo=True, mono_depth_fn=mono)(
+            state, batch, protos, bg, 1.0, pseudo=pseudo, device=d)
+        res[d.type] = (grads, m, f.cpu(), w.cpu(), terms)
+        del mono
+    (g_c, m_c, f_c, w_c, terms_c), (g_p, m_p, f_p, w_p, terms_p) = res[dev.type], res["cpu"]
+    rel, l2 = {}, {}
+    for k in TRAINABLE:
+        ref, got = g_p.params[k], g_c.params[k].cpu()
+        rel[k] = float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+        l2[k] = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
+    metric_rel = {k: abs(float(getattr(m_c, k)) - float(getattr(m_p, k)))
+                  / max(abs(float(getattr(m_p, k))), 1e-30) for k in ("loss", "l1", "psnr")}
+    w_share = float((w_c != w_p).float().mean())
+    print(f"pseudo step, card vs CPU at {SMALL['width']}x{SMALL['height']}, iteration "
+          f"{PSEUDO_START}: terms card {terms_c}, CPU {terms_p}; gradient max |diff| / field "
+          f"max { {k: f'{v:.1e}' for k, v in rel.items()} }, in the norm "
+          f"{ {k: f'{v:.1e}' for k, v in l2.items()} } (limit {PSEUDO_GRAD_TOL:g}); "
+          f"metrics rel {({k: f'{v:.1e}' for k, v in metric_rel.items()})} (limit "
+          f"{STEP_METRIC_RTOL:g}); fused weight pixels that differ {w_share:.2e}, fused "
+          f"pixels {int(w_p.sum())}")
+    require(all(v != 0.0 and math.isfinite(v) for v in terms_c.values()),
+            "a pseudo term is zero or not finite")
+    require(all(v <= PSEUDO_GRAD_TOL for v in l2.values()), "card and CPU gradients differ")
+    require(all(v <= STEP_METRIC_RTOL for v in metric_rel.values()), "card and CPU losses differ")
+    require(w_share <= 1e-3, "card and CPU fused z-buffers differ")
+
+
+def pseudo_train_phase(rng, dev, raw) -> dict:
+    """The pseudo-view slice at full width from iteration PSEUDO_START: one
+    K6 prefetch of REPROJ_PREFETCH pseudo cameras, then PSEUDO_STEPS pseudo
+    steps cycling the train cameras with the depth net (config defaults:
+    bf16) in the loss, which must lower the loss; the same steps without
+    the depth net must lower L1. Then its timings and profile."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.config import TrainConfig
+    from sdpgs_torch.core.gaussians import Gaussians
+    from sdpgs_torch.losses import reproject_fused_depth
+    from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+    from sdpgs_torch.opt.adam import TRAINABLE
+    from sdpgs_torch.train.loop import REPROJ_PREFETCH, prefetch_pseudo_reproj
+    from sdpgs_torch.train.state import TrainState
+    from sdpgs_torch.train.step import make_train_step
+
+    tcfg = TrainConfig()
+    trainee, data = train_scene(rng, dev, WIDTH, HEIGHT, CAPACITY, ALIVE)
+    mono = mono_depth_from_params(
+        raw, arch=DPT_ARCH, dtype=torch.bfloat16 if tcfg.model.dpt_bf16 else None,
+        matmul_precision=tcfg.model.dpt_matmul_precision, resize_method=tcfg.model.dpt_resize,
+        device=dev)
+    K, R_train, t_train, pcams = pseudo_geometry(data, REPROJ_PREFETCH, seed=2)
+    depths, Kd, Rd, td = (data["depth_mono"], K.to(dev), R_train.to(dev), t_train.to(dev))
+    state = TrainState.create(Gaussians.from_numpy(trainee, device=dev), device=dev)
+    state.step = PSEUDO_START
+    step = make_train_step(tcfg, SH_DEGREE, with_pseudo=True, mono_depth_fn=mono)
+    plain_step = make_train_step(tcfg, SH_DEGREE)
+    batches = [view_batch(data, v, dev) for v in range(TRAIN_CAMS)]
+    protos, bg = data["protos"], torch.zeros(3, device=dev)
+
+    # the terms at the start, and the first update against a plain step's
+    f0, w0 = reproject_fused_depth(depths, Kd, Rd, td, pcams[0].view[:3, :3].to(dev),
+                                   pcams[0].view[:3, 3].to(dev))
+    pseudo0 = pseudo_inputs(data, dev, pcams[0], f0, w0, K, R_train, t_train)
+    terms = pseudo_terms(state, pseudo0, protos, bg, tcfg, mono, dev)
+    snap = state.to_numpy()
+    moved = {}
+    for name, fn, kw in (("plain", plain_step, {}), ("pseudo", step, dict(pseudo=pseudo0))):
+        s = TrainState.from_numpy(snap, device=dev)
+        fn(s, batches[0], protos, bg, 1.0, device=dev, **kw)
+        moved[name] = {k: getattr(s.gaussians, k).detach() - torch.from_numpy(
+            snap["gaussians"][k]).to(dev) for k in TRAINABLE}
+        del s
+    update_diff = max(float((moved["pseudo"][k] - moved["plain"][k]).abs().max())
+                      for k in TRAINABLE)
+    print(f"pseudo train: {PSEUDO_STEPS} steps at {WIDTH}x{HEIGHT}, {ALIVE} alive of "
+          f"{CAPACITY}, SH {SH_DEGREE}, from iteration {PSEUDO_START}; pseudo terms at the "
+          f"start {terms}; first update, pseudo vs plain step, max |diff| {update_diff:.3e}")
+    require(all(v != 0.0 and math.isfinite(v) for v in terms.values()),
+            "a pseudo term is zero or not finite")
+    require(update_diff > 0.0, "the pseudo step updated the parameters as a plain step does")
+
+    # the main path: one prefetch, then the pseudo steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    queue = prefetch_pseudo_reproj(depths, Kd, Rd, td, pcams)
+    torch.cuda.synchronize()
+    prefetch_s = time.perf_counter() - t0
+    pseudos = [pseudo_inputs(data, dev, cam, f, w, K, R_train, t_train)
+               for cam, f, w in queue[:PSEUDO_STEPS]]
+    l1s, losses, times = [], [], []
+    for i in range(PSEUDO_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i % TRAIN_CAMS], protos, bg, 1.0, pseudo=pseudos[i],
+                        device=dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        l1s.append(float(m.l1))
+        losses.append(float(m.loss))
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    first, last = cycle_means(l1s)
+    loss_first, loss_last = cycle_means(losses)
+    step_ms = statistics.median(times[TRAIN_WARMUP:])
+    print(f"  launches {launches}; plain calls {plain}; prefetch of {len(queue)} cameras "
+          f"{prefetch_s * 1e3:.1f} ms (first call)")
+    print(f"  loss first cycle {loss_first:.5f} -> last cycle {loss_last:.5f} (ratio "
+          f"{loss_last / loss_first:.3f}, limit {PSEUDO_LOSS_MARGIN}); L1 {first:.5f} -> {last:.5f} (ratio "
+          f"{last / first:.3f}); final PSNR {float(m.psnr):.2f} dB")
+    print(f"  pseudo step: {step_ms:.3f} ms (median of {len(times) - TRAIN_WARMUP} after "
+          f"{TRAIN_WARMUP} warm-up; min {min(times[TRAIN_WARMUP:]):.3f}, max "
+          f"{max(times[TRAIN_WARMUP:]):.3f}), {1e3 / step_ms:.1f} steps/s; peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    require(all(launches[k] == 2 * PSEUDO_STEPS
+                for k in _kernels.FORWARD_KERNELS + _kernels.BACKWARD_KERNELS),
+            "a render kernel was not launched twice per pseudo step")
+    require(launches["warp_zbuf"] == 1, "the prefetch did not launch K6 once")
+    require(not any(plain.values()), "a plain version ran on the pseudo path")
+    require(all(bool(torch.isfinite(p).all()) for p in state.gaussians.parameters()),
+            "non-finite parameters after pseudo training")
+    require(loss_last < PSEUDO_LOSS_MARGIN * loss_first,
+            f"the loss did not fall below {PSEUDO_LOSS_MARGIN} x its start over the pseudo steps")
+    # The random-weight depth net's term outweighs L1 (L1 stays flat): the
+    # same steps without it, from the same state, must lower L1.
+    s = TrainState.from_numpy(snap, device=dev)
+    no_net = make_train_step(tcfg, SH_DEGREE, with_pseudo=True)
+    l1s_no_net = []
+    for i in range(PSEUDO_STEPS):
+        s, m = no_net(s, batches[i % TRAIN_CAMS], protos, bg, 1.0, pseudo=pseudos[i], device=dev)
+        l1s_no_net.append(float(m.l1))
+    nn_first, nn_last = cycle_means(l1s_no_net)
+    print(f"  the same steps without the depth net: L1 {nn_first:.5f} -> {nn_last:.5f} (ratio "
+          f"{nn_last / nn_first:.3f}, limit {L1_MARGIN})")
+    require(nn_last < L1_MARGIN * nn_first, "L1 did not fall over the pseudo steps without "
+            "the depth net")
+    del s
+
+    # the depth net alone, the prefetch alone, then the step's profile
+    x = data["image"][0].detach().clone().requires_grad_(True)
+    cot = torch.randn(x.shape[1:], generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    dpt_ms = cuda_ms(lambda: torch.autograd.grad(mono(x), x, cot), reps=10)
+    prefetch_ms = cuda_ms(lambda: prefetch_pseudo_reproj(depths, Kd, Rd, td, pcams), reps=5)
+    print(f"  depth net forward + input gradient: {dpt_ms:.3f} ms; prefetch per "
+          f"{len(pcams)} pseudo cameras: {prefetch_ms:.3f} ms")
+    prof = profile_calls(lambda i: step(state, batches[i % TRAIN_CAMS], protos, bg, 1.0,
+                                        pseudo=pseudos[i], device=dev),
+                         list(range(TRAIN_CAMS)), "pseudo step", top=16)
+    return dict(launches=launches, step_ms=step_ms, peak=peak, dpt_ms=dpt_ms,
+                prefetch_ms=prefetch_ms, **prof)
 
 
 def require(cond: bool, what: str) -> None:
@@ -536,7 +962,7 @@ def main(device: str = "cuda") -> int:
 
 
 def drive(dev: torch.device, work: Path) -> int:
-    """Phases 2-9 on ``dev``, writing the PLY and the renders under ``work``."""
+    """Phases 2-10 on ``dev``, writing the PLY and the renders under ``work``."""
     from sdpgs_torch import _kernels
     from sdpgs_torch.cli.render_cli import render_set
     from sdpgs_torch.config import RasterizeConfig
@@ -544,6 +970,7 @@ def drive(dev: torch.device, work: Path) -> int:
     from sdpgs_torch.core.gaussians import Gaussians
     from sdpgs_torch.data.camera_utils import LoadedCamera
     from sdpgs_torch.data.ply import load_gaussians_ply, save_gaussians_ply
+    from sdpgs_torch.ops import warp
     from sdpgs_torch.ops.rasterize import binning, composite_cuda, preprocess_cuda
     from sdpgs_torch.render import render
 
@@ -601,8 +1028,8 @@ def drive(dev: torch.device, work: Path) -> int:
           f"plain calls {plain}")
     require(all(launches[k] == VIEWS for k in _kernels.FORWARD_KERNELS),
             "a forward kernel was not launched once per view")
-    require(not any(launches[k] for k in _kernels.BACKWARD_KERNELS),
-            "a backward kernel ran on the render path")
+    require(not any(launches[k] for k in _kernels.BACKWARD_KERNELS + _kernels.WARP_KERNELS),
+            "a backward or warp kernel ran on the render path")
     require(not any(plain.values()), "a plain version ran on the render path")
     base = out_root / "test" / "ours_0"
     for i in range(VIEWS):
@@ -647,7 +1074,14 @@ def drive(dev: torch.device, work: Path) -> int:
     check_step_card_vs_cpu(rng, dev)
     train = train_phase(rng, dev)
 
-    # -- 9. kernel timings and bounds ---------------------------------------
+    # -- 9. pseudo-view training: K6, the depth net, the pseudo steps ------
+    _, pdata = train_scene(rng, dev, WIDTH, HEIGHT, CAPACITY, ALIVE)
+    warp_check = check_warp(pdata, dev)
+    dnet = check_depth_net(pdata, dev)
+    check_pseudo_step_card_vs_cpu(rng, dev, dnet["raw"])
+    pseudo = pseudo_train_phase(rng, dev, dnet["raw"])
+
+    # -- 10. kernel timings and bounds --------------------------------------
     k1_args, k2_args, k3_args = (main_check[k] for k in ("k1_args", "k2_args", "k3_args"))
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
@@ -663,6 +1097,14 @@ def drive(dev: torch.device, work: Path) -> int:
         k5_ms = cuda_ms(lambda: composite_cuda.composite_gather_bwd(*k5_args))
         k5_plain = cuda_ms(lambda: composite_cuda.composite_vjp_plain(
             *main_check["k5_plain_args"], tiles_per_pass=PLAIN_TILES_PER_PASS), reps=3)
+        depths, pc = warp_check["depths"], warp_check["pc"]
+        k6_ms = cuda_ms(lambda: warp.warp_zbuffer_rows(depths, pc))
+        k6_plain = cuda_ms(lambda: warp.warp_zbuffer_rows_plain(depths, pc), reps=3)
+        # the library call: the plain version's scatter-min alone, on its rows
+        idx, zv = warp.scatter_rows(*warp.project_rows(depths, pc), HEIGHT, WIDTH)
+        zbuf = torch.full((pc.shape[0] * HEIGHT * WIDTH + 1,), float("inf"), device=dev)
+        k6_lib = cuda_ms(lambda: zbuf.scatter_reduce_(0, idx, zv, reduce="amin"))
+        del idx, zv, zbuf
     nsh = 3 * (SH_DEGREE + 1) ** 2
     npix = cfg.tile ** 2
     payload_bytes = main_check["payload_numel"] * 4
@@ -671,6 +1113,7 @@ def drive(dev: torch.device, work: Path) -> int:
     k3_bytes = payload_bytes + (T * K + T + T * npix * (composite_cuda.NCH + 1)) * 4
     k4_bytes = (K4_BYTES_ROWS + 2 * nsh) * 4 * CAPACITY
     k5_bytes = 2 * payload_bytes + (T * K + T * npix * (composite_cuda.NCH + 3)) * 4
+    k6_bytes = (pc.shape[0] + depths.shape[0]) * HEIGHT * WIDTH * 4 + pc.numel() * 4
 
     def bound(nbytes, ops=0):
         return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
@@ -680,30 +1123,35 @@ def drive(dev: torch.device, work: Path) -> int:
         "k3": bound(k3_bytes, pairs * ALPHA_OPS + contrib * BLEND_OPS),
         "k4": bound(k4_bytes),
         "k5": bound(k5_bytes, main_check["walked"] * ALPHA_OPS + contrib * GRAD_OPS),
+        "k6": bound(k6_bytes, warp_check["rows"] * WARP_OPS),
     }
+    rast = "sdpgs_tpu/ops/rasterize/"
+    per_view, per_step = (launches, VIEWS, "view"), (train["launches"], TRAIN_STEPS, "train step")
+    per_pseudo = (pseudo["launches"], PSEUDO_STEPS, "pseudo step")
     rows = [
-        ("preprocess_sh_fwd", "preprocess.cu", "preprocess_pallas.py:227", "preprocess",
-         launches, "k1", main_check["k1_err"], k1_ms, k1_plain),
-        ("bin_table", "binning.cu", "rank_pallas.py:851", "binning", launches, "k2",
-         main_check["k2_err"], k2_ms, k2_plain),
-        ("composite_fwd", "composite.cu", "composite_pallas.py:283", "composite", launches,
-         "k3", main_check["k3_err"], k3_ms, k3_plain),
-        ("preprocess_sh_bwd", "preprocess_bwd.cu", "preprocess_pallas.py:236", "preprocess_bwd",
-         train["launches"], "k4", main_check["k4_err"], k4_ms, k4_plain),
-        ("composite_bwd", "composite_bwd.cu", "composite_pallas.py:318", "composite_bwd",
-         train["launches"], "k5", main_check["k5_err"], k5_ms, k5_plain),
+        ("preprocess_sh_fwd", "preprocess.cu", rast + "preprocess_pallas.py:227", "preprocess",
+         per_view, "k1", main_check["k1_err"], k1_ms, k1_plain, None),
+        ("bin_table", "binning.cu", rast + "rank_pallas.py:851", "binning", per_view, "k2",
+         main_check["k2_err"], k2_ms, k2_plain, None),
+        ("composite_fwd", "composite.cu", rast + "composite_pallas.py:283", "composite",
+         per_view, "k3", main_check["k3_err"], k3_ms, k3_plain, None),
+        ("preprocess_sh_bwd", "preprocess_bwd.cu", rast + "preprocess_pallas.py:236",
+         "preprocess_bwd", per_step, "k4", main_check["k4_err"], k4_ms, k4_plain, None),
+        ("composite_bwd", "composite_bwd.cu", rast + "composite_pallas.py:318", "composite_bwd",
+         per_step, "k5", main_check["k5_err"], k5_ms, k5_plain, None),
+        ("warp_zbuffer", "warp_zbuf.cu", "sdpgs_tpu/ops/warp_pallas.py:115", "warp_zbuf",
+         per_pseudo, "k6", warp_check["err"], k6_ms, k6_plain, k6_lib),
     ]
     records = [
-        dict(name=name, route="cuda", source=f"sdpgs_torch/csrc/{src}",
-             replaces=f"sdpgs_tpu/ops/rasterize/{rep}",
+        dict(name=name, route="cuda", source=f"sdpgs_torch/csrc/{src}", replaces=rep,
              launches=counts[kern], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             bound_ms=bounds[b][0], bound_by=bounds[b][1], library_ms=None)
-        for name, src, rep, kern, counts, b, err, ms, plain_ms in rows
+             bound_ms=bounds[b][0], bound_by=bounds[b][1], library_ms=lib_ms)
+        for name, src, rep, kern, (counts, _, _), b, err, ms, plain_ms, lib_ms in rows
     ]
-    for r, (_, _, _, _, counts, _, _, _, _) in zip(records, rows):
-        per = "view" if counts is launches else "train step"
-        n_runs = VIEWS if counts is launches else TRAIN_STEPS
-        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms), bound "
+    for r, row in zip(records, rows):
+        _, n_runs, per = row[4]
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms{lib}), bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
               f"{r['launches'] / n_runs:g} launch per {per}")
 

@@ -4,14 +4,20 @@ The PyTorch counterpart of ``sdpgs_tpu``: module names mirror that package
 so each function's reference is easy to find. It imports neither JAX nor
 anything of ``sdpgs_tpu``.
 
-So far the port covers two paths. Serving: load a trained cloud from a
+So far the port covers three paths. Serving: load a trained cloud from a
 PLY, render views (preprocess + SH, tile binning, compositing) and write
 them out (``cli/render_cli.render_set``). Training: the plain train step
 (``train/step.make_train_step``), one combined loss, one backward and one
-Adam step. Five kernels in ``csrc/`` carry them on the card: three
-forward (preprocess, binning, compositing) and two backward (preprocess,
-compositing). Beside each wrapper sits a plain PyTorch version of the same
-function, used for CPU tensors and as the kernel's check.
+Adam step. Pseudo-view training: the same step with ``with_pseudo=True``,
+which renders a second view from a pseudo camera and adds the depth net's
+Pearson (``models/``: DPT-Hybrid, differentiable into the image), the
+per-segment Pearson and the reprojection consistency against z-buffers
+that ``train/loop.prefetch_pseudo_reproj`` builds for 64 pseudo cameras at
+a time. Six kernels in ``csrc/`` carry them on the card: three forward
+(preprocess, binning, compositing), two backward (preprocess,
+compositing) and the reprojection z-buffer. Beside each wrapper sits a
+plain PyTorch version of the same function, used for CPU tensors and as
+the kernel's check.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that request they raise.

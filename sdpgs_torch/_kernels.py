@@ -11,7 +11,9 @@ versions for CPU tensors.
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel,
 and every plain version adds one to ``PLAIN_CALLS[name]``, so a run can
 show which path it took. K1-K3 (``FORWARD_KERNELS``) run on every render;
-K4 and K5 (``BACKWARD_KERNELS``) run in the backward of a train step.
+K4 and K5 (``BACKWARD_KERNELS``) run in the backward of a train step; K6
+(``WARP_KERNELS``) builds the reprojection z-buffers of the pseudo-view
+branch.
 """
 
 from __future__ import annotations
@@ -40,10 +42,13 @@ SOURCES = {
     "composite.cu": [],
     "preprocess_bwd.cu": ["-fmad=false"],
     "composite_bwd.cu": [],
+    # K6's u, v and z round exactly as its plain version's do
+    "warp_zbuf.cu": ["-fmad=false"],
 }
 FORWARD_KERNELS = ("preprocess", "binning", "composite")
 BACKWARD_KERNELS = ("preprocess_bwd", "composite_bwd")
-KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS
+WARP_KERNELS = ("warp_zbuf",)
+KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -67,6 +72,8 @@ _SIGNATURES = {
     # stats(or null), P, num_tiles, tiles_x, tile, K, alpha_min, alpha_max,
     # stream
     "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # depths, pc, out, n_pairs, V, H, W, stream
+    "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 _lib = None
 

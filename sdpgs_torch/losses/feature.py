@@ -1,8 +1,8 @@
 """Language-feature losses.
 
-Counterpart of ``sdpgs_tpu/losses/feature.py:17-66`` (reference
-utils/loss_utils.py:212-307): ``penalty_loss`` and ``loss_feature_metric``.
-``segment_cluster_assign`` comes with the pseudo-view slice.
+Counterpart of ``sdpgs_tpu/losses/feature.py`` (reference
+utils/loss_utils.py:212-307, train.py:155-183): ``penalty_loss``,
+``loss_feature_metric`` and the pseudo view's ``segment_cluster_assign``.
 """
 
 from __future__ import annotations
@@ -53,3 +53,19 @@ def loss_feature_metric(language_feature: torch.Tensor, gt_language_feature: tor
     loss_feature = known_fce * ce + known_fl1 * l1_loss(pred, gt)
     loss_smooth = known_fsm * penalty_loss(language_feature.permute(1, 2, 0))
     return loss_feature, loss_smooth
+
+
+def segment_cluster_assign(feature_img: torch.Tensor, prototypes: torch.Tensor,
+                           window: int = 7) -> torch.Tensor:
+    """Each pixel's segment: the one whose softmax probability (of the
+    cosine to the [S, 3] prototypes) is largest over a window x window
+    neighbourhood, the first on a tie (reference train.py:161-171's
+    ``max_pool3d`` trick, as a spatial max-pool per segment and an argmax
+    over segments). [3, H, W] -> [H, W] int32. The max-pool pads with
+    -inf, as ``reduce_window``'s init value does in JAX."""
+    _, H, W = feature_img.shape
+    feat = feature_img.permute(1, 2, 0).reshape(-1, 3)
+    p_k = torch.softmax(_cosine_to_prototypes(feat, prototypes), dim=-1)      # [N, S]
+    p_img = p_k.T.reshape(1, -1, H, W)
+    pooled = torch.nn.functional.max_pool2d(p_img, window, stride=1, padding=window // 2)
+    return torch.argmax(pooled[0], dim=0).to(torch.int32)

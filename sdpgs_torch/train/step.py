@@ -1,22 +1,27 @@
-"""The plain train step.
+"""The train step.
 
-Counterpart of ``sdpgs_tpu/train/step.py`` with ``with_pseudo=False``
-(reference train.py:93-134): one combined loss, one backward, one Adam
-step per iteration:
+Counterpart of ``sdpgs_tpu/train/step.py`` (reference train.py:93-194):
+one combined loss, one backward, one Adam step per iteration:
 - photometric (1 - lambda) L1 + lambda (1 - SSIM)       (train.py:99-100)
 - language-feature CE + L1 + smoothness                 (train.py:102-109)
 - mono-depth Pearson with the disparity fallback        (train.py:126-131),
-  its weight dropping to ``depth_weight_late`` after end_sample_pseudo.
+  its weight dropping to ``depth_weight_late`` after end_sample_pseudo;
+- with ``with_pseudo``, the pseudo-view branch (train.py:138-188): a render
+  from a pseudo camera, the Pearson of its depth against the depth net's
+  estimate (differentiable through the net into the image), the
+  per-segment Pearson after iteration 4000, and the multi-view
+  reprojection consistency.
 The JAX package vmaps the render over the view batch; the port loops over
-the views, as the JAX ``unroll_views`` branch does, and takes one backward
-of the mean loss. On CUDA the renders run K1-K3 and the backward K5 and
-K4. Screen-space densification gradients come from differentiating with
-respect to an all-zeros per-view ``means2d_offset``.
+the views, as the JAX ``unroll_views`` branch does, renders the pseudo
+view through the same ``render``, and takes one backward of the total.
+On CUDA every render runs K1-K3 and the backward K5 and K4. Screen-space
+densification gradients come from differentiating with respect to an
+all-zeros per-view ``means2d_offset`` of the train views only.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -27,7 +32,12 @@ from sdpgs_torch.losses import (
     depth_pearson_loss,
     l1_loss_mask,
     loss_feature_metric,
+    loss_reproject_depth,
+    loss_reproject_from_fused,
+    pearson_corrcoef,
     psnr,
+    segment_cluster_assign,
+    segment_pearson_loss,
     ssim,
 )
 from sdpgs_torch.opt.adam import TRAINABLE, adam_update, learning_rates
@@ -56,6 +66,29 @@ class ViewBatch(NamedTuple):
     depth_mono: torch.Tensor       # [V, H, W] aligned mono depth prior
     feature: torch.Tensor          # [V, 3, H, W] per-pixel language feature
     seg_map: torch.Tensor          # [V, H, W] int segment ids
+
+
+class PseudoInputs(NamedTuple):
+    """Inputs of the pseudo-view branch (the JAX fields)."""
+
+    camera: Camera                 # the pseudo camera
+    train_depths: torch.Tensor     # [V, H, W] aligned mono depths of the train views
+    K: torch.Tensor                # [3, 3]
+    R_train: torch.Tensor          # [V, 3, 3] world -> camera
+    t_train: torch.Tensor          # [V, 3]
+    R_pseudo: torch.Tensor         # [3, 3]
+    t_pseudo: torch.Tensor         # [3]
+    # Kept for the JAX signature and unused: the port's depth net is a
+    # module that holds its weights.
+    mono_params: object = ()
+    # The fused reprojection z-buffer (losses.reproject_fused_depth):
+    # independent of the Gaussians, so prefetched once per pseudo camera
+    # (train/loop.prefetch_pseudo_reproj). None: the warp runs in the step.
+    reproj_fused: Optional[torch.Tensor] = None    # [H, W]
+    reproj_weight: Optional[torch.Tensor] = None   # [H, W] 0/1
+    # Which view of the batch plays the reference's sampled train view for
+    # pseudo_seg_from_train_view (train.py:156).
+    train_view_idx: int = 0
 
 
 class Gradients(NamedTuple):
@@ -87,10 +120,50 @@ def _view_losses_from_out(out, gt_img, mono, gt_feat, seg, protos, cfg: TrainCon
     return loss, (ll1, image)
 
 
+def _pseudo_losses(out, pseudo: PseudoInputs, protos, cfg: TrainConfig, step: int,
+                   mono_depth_fn: Optional[Callable], train_feature=None) -> torch.Tensor:
+    """The pseudo-view terms (JAX step.py:136-190, train.py:138-188) from
+    the rendered pseudo view ``out``; 0-d.
+
+    Segment labels come from the pseudo view's own rendered features, or
+    from the train view's ([3, H, W] ``train_feature``) when
+    ``cfg.optim.pseudo_seg_from_train_view`` is set, as the reference
+    indexes them (train.py:156)."""
+    opt = cfg.optim
+    it = float(step)
+    loss_scale = min(max((it - opt.start_sample_pseudo) / 500.0, 0.0), 1.0)
+    depth = out.depth
+    total = torch.zeros((), dtype=torch.float32, device=depth.device)
+
+    if mono_depth_fn is not None:
+        mono = mono_depth_fn(out.color.permute(2, 0, 1))                  # [H, W]
+        pl = 1.0 - pearson_corrcoef(depth, -mono)
+        total = total + loss_scale * opt.depth_pseudo_weight * torch.nan_to_num(pl)
+        if it > 4000.0:     # the segment term is live after iteration 4000
+            if opt.pseudo_seg_from_train_view and train_feature is not None:
+                label_feat = train_feature
+            else:
+                label_feat = out.feature.permute(2, 0, 1)
+            labels = segment_cluster_assign(label_feat.detach(), protos)
+            seg_loss = segment_pearson_loss(depth, mono, labels, protos.shape[0])
+            seg_scale = min(max((it - opt.start_sample_pseudo) / 8000.0, 0.0), 1.0)
+            total = total + (0.25 * seg_scale * opt.depth_pseudo_weight
+                             * torch.nan_to_num(seg_loss))
+
+    if pseudo.reproj_fused is not None:
+        reproj = loss_reproject_from_fused(depth, pseudo.reproj_fused, pseudo.reproj_weight)
+    else:
+        reproj = loss_reproject_depth(depth, pseudo.train_depths, pseudo.K, pseudo.R_train,
+                                      pseudo.t_train, pseudo.R_pseudo, pseudo.t_pseudo)
+    return total + 0.5 * loss_scale * opt.depth_pseudo_weight * torch.nan_to_num(reproj)
+
+
 def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: TrainConfig,
-                   sh_degree: int, device: torch.device) -> Gradients:
-    """Render every view, form the mean combined loss and take its one
-    backward with respect to the trainable fields and the offsets."""
+                   sh_degree: int, device: torch.device, pseudo: Optional[PseudoInputs] = None,
+                   mono_depth_fn: Optional[Callable] = None) -> Gradients:
+    """Render every view, form the mean combined loss (plus the pseudo-view
+    terms when ``pseudo`` is given) and take its one backward with respect
+    to the trainable fields and the train views' offsets."""
     g = state.gaussians
     params = [getattr(g, k) for k in TRAINABLE]
     conf = g.confidence if cfg.pipeline.use_confidence else None
@@ -108,6 +181,14 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
         images.append(image.detach())
         outs.append(out)
     loss = torch.stack(losses).mean()
+    if pseudo is not None:
+        # no offset: the densification statistics come from the train
+        # views only (train.py:218-221)
+        out_ps = render(pseudo.camera, g, cfg.raster, bg, sh_degree, confidence=conf,
+                        device=device)
+        train_feat = outs[pseudo.train_view_idx].feature.permute(2, 0, 1)
+        loss = loss + _pseudo_losses(out_ps, pseudo, prototypes, cfg, state.step,
+                                     mono_depth_fn, train_feature=train_feat)
     grads = torch.autograd.grad(loss, params + offsets, allow_unused=True)
     param_grads = {k: torch.zeros_like(p) if d is None else d
                    for k, p, d in zip(TRAINABLE, params, grads[:len(params)])}
@@ -117,32 +198,38 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
 
 
 def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
-                    tile_mesh=None, out_shardings=None) -> Callable:
+                    mono_depth_fn: Optional[Callable] = None, tile_mesh=None,
+                    out_shardings=None) -> Callable:
     """The train step for an active SH degree (the reference raises the
-    degree every 500 iterations, train.py:85-86).
+    degree every 500 iterations, train.py:85-86). With ``with_pseudo`` the
+    pseudo-view terms join the same loss and backward; ``mono_depth_fn``
+    ([3, H, W] image -> [H, W] inverse depth, differentiable in the image,
+    e.g. a ``models.depth_estimator.MonoDepth``) enables the depth-net
+    terms, and without it only the reprojection term runs (as a run
+    without ``dpt_weights``).
 
-    ``step(state, batch, prototypes, bg, spatial_lr_scale, device=None)``
-    runs on ``device`` (``cuda`` unless the caller asks for another), where
-    ``state`` must live; it updates the state's parameters, moments and
-    statistics in place under ``torch.no_grad`` and returns
+    ``step(state, batch, prototypes, bg, spatial_lr_scale, pseudo=None,
+    device=None)`` runs on ``device`` (``cuda`` unless the caller asks for
+    another), where ``state`` must live; it updates the state's parameters,
+    moments and statistics in place under ``torch.no_grad`` and returns
     ``(state, StepMetrics)``."""
-    if with_pseudo:
-        raise NotImplementedError(
-            "with_pseudo=True: the pseudo-view branch comes with the pseudo-view slice "
-            "(ROADMAP.md queue A, item 10)")
     if tile_mesh is not None or out_shardings is not None:
         raise NotImplementedError(
             "tile_mesh / out_shardings: multi-card training comes with the parallelism "
             "slice (ROADMAP.md queue A, item 13)")
 
     def step(state: TrainState, batch: ViewBatch, prototypes, bg, spatial_lr_scale,
-             device=None):
+             pseudo: Optional[PseudoInputs] = None, device=None):
         dev = default_device(device)
         if state.device.type != dev.type:
             raise ValueError(f"state lives on {state.device}, train device is {dev}")
+        if with_pseudo != (pseudo is not None):
+            raise ValueError("a step made with with_pseudo=True takes PseudoInputs, "
+                             "and only such a step does")
         bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
         prototypes = torch.as_tensor(prototypes, dtype=torch.float32, device=dev)
-        grads = loss_and_grads(state, batch, prototypes, bg, cfg, sh_degree, dev)
+        grads = loss_and_grads(state, batch, prototypes, bg, cfg, sh_degree, dev,
+                               pseudo=pseudo, mono_depth_fn=mono_depth_fn)
 
         with torch.no_grad():
             g = state.gaussians

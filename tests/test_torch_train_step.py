@@ -177,8 +177,8 @@ def test_loss_decreases(rng):
     assert float(state.stats.denom.max()) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(with_pseudo=True), dict(tile_mesh=object()),
-                                dict(out_shardings=object())])
+@pytest.mark.parametrize("kw", [dict(with_pseudo=True, tile_mesh=object()),
+                                dict(tile_mesh=object()), dict(out_shardings=object())])
 def test_later_slices_refused(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         make_train_step(torch_cfg(), 3, **kw)
