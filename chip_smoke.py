@@ -3,10 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's six kernels from ``sdpgs_torch/csrc/`` with nvcc and
-drives its three paths at the LLFF protocol's size (504x378, capacity
-131,072, 60,000 alive, SH degree 3), clouds, images and weights made from
-a seed:
+Builds the port's eight kernels from ``sdpgs_torch/csrc/`` with nvcc and
+drives its four paths at the LLFF protocol's size (504x378, capacity
+131,072, 60,000 alive, SH degree 3), and the two kernels' own entry
+points, clouds, images and weights made from a seed:
+
+- the depth sort's own path (K7, ``ops/sort.sort_by_key``, the
+  counterpart of scripts/perf_sort.py): N = 2^17 and 2^16 with 40% +inf
+  keys, then N = 2^14 and 2^19 with ties and signed zeros, each
+  bit-identical to torch.sort(stable=True) with its gathers and to the
+  plain version;
+- the launch-floor probe's own path (K8, ``ops/launch_floor``, row C of
+  scripts/perf_rank_variants.py) on K2's sorted rects at P = 131,072,
+  D = 8, equal to its plain version;
 
 - serving: a trained-like cloud is written as a PLY and loaded back on the
   card; each kernel (K1-K3 forward, K4-K5 backward) is held against its
@@ -27,10 +36,22 @@ a seed:
   whose pseudo cameras come from one K6 prefetch of 64: K1-K5 must launch
   twice per step, K6 once, and no plain version; the loss must fall below
   0.96x its start, and L1 below 0.9x in the same steps without the depth
-  net.
+  net;
+- the Trainer: one densify event with proximity on the card against the
+  CPU at a reduced size (and the k-NN), then ``train/loop.Trainer`` for
+  600 iterations on a ``SyntheticScene`` at full width (3 train views, 1
+  test view, 16 segments, 128 pseudo poses, 60,000 ground-truth points)
+  with the DPT-Hybrid in bf16: densify at 100-400 (proximity at 100), 99
+  pseudo iterations from two K6 prefetches, the opacity reset at 301,
+  SH degree 1 from 500, eval and a checkpoint at 600. K1-K5 must launch
+  once per plain iteration and twice per pseudo one (K1-K3 also once per
+  eval view), K6 twice, nothing else; an event must spawn and the prune
+  after the reset remove some; PSNR must rise from 100 to 300; the report
+  files must exist and the checkpoint restore to equal arrays. A Trainer
+  with tight K and D must double both at its next log point.
 
-It then times each kernel, its plain version, a render, a train step and
-a pseudo step, and profiles them. Every phase raises on failure, so the
+It then times each kernel, its plain version, a render, a train step, a
+pseudo step and the Trainer's iterations and events, and profiles them. Every phase raises on failure, so the
 script exits non-zero and prints no ``ok`` line; it refuses to run
 without a CUDA device. The card's name and power limit are printed first;
 the last two lines are the ``kernels`` JSON record and the ``ok`` JSON
@@ -108,6 +129,27 @@ DPT_BF16_GRAD_MARGIN = 1.25
 PSEUDO_LOSS_MARGIN = 0.96     # 30 pseudo steps: mean loss of the last cycle < 0.96 x the
                               # first's (read 1.06301 -> 0.99164, 0.933)
 DPT_ARCH = DPTArch.hybrid()   # the reference's depth net
+SORT_SIZES = (1 << 17, 1 << 16)        # K7's path: scripts/perf_sort.py's shapes
+SORT_EDGE_SIZES = (1 << 14, 1 << 19)   # the domain's ends, with ties and signed zeros
+SORT_DEAD = 0.4                        # share of +inf keys (dead slots)
+SORT_BYTES = 24                        # K7 per element: key, payload, gid read and written
+PROBE_D = 8                            # K8: tile slots per rect
+PROBE_BYTES = 4 + 4 + 32 + 4           # K8 per slot: packed, gid, tid's row sector, out
+KNN_TOL = 1e-5                # k-NN card vs CPU: |diff| over |q|^2 + |p|^2, the terms
+                              # the formula cancels
+DENSIFY_TOL = 1e-6            # densify card vs CPU: every field within this of its max
+# The Trainer phase: TrainConfig() with a compressed schedule, on a
+# SyntheticScene at LLFF width. Points spread as the render cell's cloud,
+# scales 0.014 (init_scale 2e-4): above percent_dense x extent, so the
+# first events split.
+TRAINER_OPTIM = dict(iterations=600, densify_from_iter=50, densification_interval=100,
+                     densify_until_iter=500, proximity_until_iter=150, start_sample_pseudo=300,
+                     end_sample_pseudo=400, test_iterations=(600,), checkpoint_iterations=(600,))
+TRAINER_SCENE = dict(n_points=ALIVE, capacity=CAPACITY, width=WIDTH, height=HEIGHT, n_train=3,
+                     n_test=1, n_segments=PROTOTYPES, n_pseudo=128, point_spread=1.0,
+                     depth_center=4.0, init_scale=2e-4)
+TRAINER_LOG_EVERY = 100
+BARE_STEPS = 20               # bare step timing: median after TRAIN_WARMUP
 
 
 def card_line() -> str:
@@ -556,8 +598,9 @@ def train_phase(rng, dev) -> dict:
     require(all(launches[k] == TRAIN_STEPS
                 for k in _kernels.FORWARD_KERNELS + _kernels.BACKWARD_KERNELS),
             "a kernel was not launched once per train step")
-    require(not any(launches[k] for k in _kernels.WARP_KERNELS),
-            "a warp kernel ran on the plain train path")
+    require(not any(launches[k] for k in _kernels.WARP_KERNELS + _kernels.SORT_KERNELS
+                    + _kernels.PROBE_KERNELS),
+            "K6, K7 or K8 ran on the plain train path")
     require(not any(plain.values()), "a plain version ran on the train path")
     require(all(bool(torch.isfinite(p).all()) for p in state.gaussians.parameters()),
             "non-finite parameters after training")
@@ -947,6 +990,390 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
                 prefetch_ms=prefetch_ms, **prof)
 
 
+def sort_inputs(rng, n: int, dead: float, edge: bool, dev):
+    """perf_sort.py's inputs: depths in [1, 9) with a share of +inf (dead
+    slots), random payloads, gid = arange(n); ``edge`` adds 5% ties and
+    signed zeros (tests/test_sort_pallas.py)."""
+    depth = rng.uniform(1, 9, n).astype(np.float32)
+    depth[rng.random(n) < dead] = np.inf
+    if edge:
+        depth[rng.random(n) < 0.05] = 2.5
+        depth[rng.random(n) < 0.03] = 0.0
+        depth[rng.random(n) < 0.03] = -0.0
+    packed = rng.integers(0, 1 << 30, n).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (depth, packed, np.arange(n, dtype=np.int32)))
+
+
+def same_bits(a, b) -> bool:
+    """Bit-identical tensors (floats by their int32 bits: -0.0 != +0.0)."""
+    view = (lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t)  # noqa: E731
+    return bool(torch.equal(view(a), view(b)))
+
+
+def library_sort(key, val1, gid):
+    """The library call K7 stands beside: torch.sort(stable=True) and the
+    two gathers."""
+    ks, order = torch.sort(key, stable=True)
+    return ks, val1[order], gid[order]
+
+
+def sort_phase(rng, dev) -> dict:
+    """K7's own path, the counterpart of scripts/perf_sort.py: the stable
+    sort at N = 2^17 and 2^16 with 40% +inf keys; each result bit-identical
+    to torch.sort(stable=True) with its gathers and to the plain version,
+    also at N = 2^14 and 2^19 with ties and signed zeros."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.ops.sort import sort_by_key, sort_by_key_plain
+
+    main = {n: sort_inputs(rng, n, SORT_DEAD, False, dev) for n in SORT_SIZES}
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    outs = {n: sort_by_key(*args, device=dev) for n, args in main.items()}
+    torch.cuda.synchronize()
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    require(launches["sort"] == len(SORT_SIZES) and not any(plain.values())
+            and sum(launches.values()) == launches["sort"],
+            "the sort path did not launch K7 once per sort, and nothing else")
+    cases = {**{(n, "40% inf"): (main[n], outs[n]) for n in SORT_SIZES}}
+    for n in SORT_EDGE_SIZES:
+        args = sort_inputs(rng, n, SORT_DEAD, True, dev)
+        cases[(n, "inf, ties, signed zeros")] = (args, sort_by_key(*args, device=dev))
+    err = 0.0
+    for (n, label), (args, got) in cases.items():
+        lib = library_sort(*args)
+        ref = sort_by_key_plain(*args)
+        torch.cuda.synchronize()
+        same = [same_bits(a, b) and same_bits(a, c) for a, b, c in zip(got, lib, ref)]
+        finite = torch.isfinite(ref[0])
+        err = max(err, float((got[0] - ref[0])[finite].abs().max()),
+                  *(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:])))
+        zeros = int((got[0] == 0).sum())
+        print(f"  K7 sort N=2^{n.bit_length() - 1} ({label}): keys, payload, gids bit-identical "
+              f"to torch.sort(stable) + gathers and to the plain version {same}; inf keys "
+              f"{int(torch.isinf(got[0]).sum())}, zeros {zeros} (negative "
+              f"{int(torch.signbit(got[0][got[0] == 0]).sum())})")
+        require(all(same), f"K7 disagrees at N={n} ({label})")
+    print(f"sort path: launches {launches}")
+    return dict(launches=launches, args=main[SORT_SIZES[0]], err=err)
+
+
+def rect_tids(packed_s: torch.Tensor, tiles_x: int, D: int) -> torch.Tensor:
+    """[P, D] tile ids of each sorted rect's first D tiles, -1 past its
+    count (scripts/perf_rank_variants.py:100-112)."""
+    from sdpgs_torch.ops.rasterize.binning import unpack_rect
+
+    xmin, xmax, ymin, ymax = unpack_rect(packed_s)
+    rect_w = xmax - xmin
+    count = rect_w * (ymax - ymin)
+    d = torch.arange(D, dtype=torch.int32, device=packed_s.device)[None, :]
+    rw = torch.clamp_min(rect_w, 1)[:, None]
+    tid = (ymin[:, None] + d // rw) * tiles_x + xmin[:, None] + d % rw
+    valid = (count > 0)[:, None] & (d < count[:, None])
+    return torch.where(valid, tid, -1).to(torch.int32).contiguous()
+
+
+def probe_phase(main_check: dict) -> dict:
+    """K8's own path, the counterpart of row C of
+    scripts/perf_rank_variants.py: the launch-floor probe once on K2's
+    sorted rects, gids and tile ids (P = 131,072, D = 8), then equal to
+    its plain version."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.config import RasterizeConfig
+    from sdpgs_torch.ops.launch_floor import launch_floor, launch_floor_plain
+    from sdpgs_torch.ops.rasterize import binning
+
+    packed_s, order = main_check["k2_args"][:2]
+    tiles_x, _ = binning.tile_grid(WIDTH, HEIGHT, RasterizeConfig().tile)
+    args = (packed_s, order, rect_tids(packed_s, tiles_x, PROBE_D))
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    out = launch_floor(*args, device=packed_s.device)
+    torch.cuda.synchronize()
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    ref = launch_floor_plain(*args)
+    same = bool(torch.equal(out, ref))
+    err = float((out.double() - ref.double()).abs().max())
+    print(f"probe path: launches {launches}; K8 at P={packed_s.shape[0]}, D={PROBE_D}: equal to "
+          f"its plain version {same}, tile ids set {int((args[2] >= 0).sum())}")
+    require(launches["launch_floor"] == 1 and sum(launches.values()) == 1
+            and not any(plain.values()), "the probe path did not launch K8 once, and nothing else")
+    require(same, "K8 disagrees with its plain version")
+    return dict(launches=launches, args=args, err=err)
+
+
+def check_densify_card_vs_cpu(rng, dev) -> None:
+    """One densify event with proximity on, card against CPU at SMALL size:
+    the k-NN on both (distances, and indices wherever the distances are not
+    tied), then densify_and_prune from one state, one noise tensor and the
+    CPU's k-NN inputs on both: alive masks identical, counts equal, every
+    field within DENSIFY_TOL of its largest value."""
+    from sdpgs_torch.core.gaussians import PARAM_FIELDS, Gaussians
+    from sdpgs_torch.ops.knn import knn
+    from sdpgs_torch.opt.densify import densify_and_prune
+    from sdpgs_torch.train.state import TrainState
+
+    P, n = SMALL["capacity"], SMALL["alive"]
+    arrays = make_cloud(rng, n, P)
+    denom = rng.integers(0, 5, P).astype(np.float32)
+    accum = rng.uniform(0, 0.003, P).astype(np.float32) * denom
+    noise = rng.normal(size=(P, 3)).astype(np.float32)
+    cpu = torch.device("cpu")
+    knns = {}
+    for d in (dev, cpu):
+        xyz = torch.from_numpy(arrays["xyz"]).to(d)
+        alive = torch.from_numpy(arrays["alive"]).to(d)
+        d2, idx = knn(xyz, k=3, mask=alive, device=d)
+        knns[d.type] = (d2.cpu(), idx.cpu())
+    (d2_c, i_c), (d2_p, i_p) = knns[dev.type], knns["cpu"]
+    alive_rows = torch.from_numpy(arrays["alive"]) > 0
+    scale = torch.from_numpy((arrays["xyz"].astype(np.float64) ** 2).sum(-1)).float()[:, None]
+    diff = (d2_c - d2_p).abs()[alive_rows]
+    rel = float((diff / d2_p[alive_rows].clamp_min(1e-30)).max())
+    cancel = float((diff / (2 * scale[alive_rows])).max())
+    moved = (i_c != i_p)[alive_rows]
+    tied = diff[moved] <= KNN_TOL * 2 * scale[alive_rows].expand_as(moved)[moved]
+    print(f"k-NN card vs CPU on {n} points: distances max |diff| / distance {rel:.2e}, / (|q|^2 "
+          f"+ |p|^2) {cancel:.2e} (limit {KNN_TOL:g}); indices that differ {int(moved.sum())} of "
+          f"{moved.numel()}, all at tied distances {bool(tied.all())}")
+    require(cancel <= KNN_TOL and bool(tied.all()), "the k-NN differs between card and CPU")
+
+    finite = torch.isfinite(d2_p)
+    knn_dist = torch.where(finite, d2_p, 0.0).sum(-1) / finite.sum(-1).clamp_min(1)
+    max_scale = np.exp(arrays["scaling"]).max(-1)
+    extent = 0.2 * float(knn_dist[alive_rows].median())
+    pd = float(np.median(max_scale[:n])) / extent
+    kw = dict(grad_threshold=0.0013, min_opacity=0.01, extent=extent, percent_dense=pd,
+              run_proximity=True)
+    res = {}
+    for d in (dev, cpu):
+        state = TrainState.create(Gaussians.from_numpy(arrays, device=d), device=d)
+        state.stats.xyz_gradient_accum.copy_(torch.from_numpy(accum))
+        state.stats.denom.copy_(torch.from_numpy(denom))
+        g, _, _, info = densify_and_prune(state.gaussians, state.opt_state, state.stats,
+                                          torch.from_numpy(noise).to(d),
+                                          knn_dist=knn_dist.to(d), knn_idx=i_p.to(d), **kw)
+        res[d.type] = (g.to_numpy(), {k: int(v) for k, v in info._asdict().items()})
+    (g_c, info_c), (g_p, info_p) = res[dev.type], res["cpu"]
+    errs = {k: float(np.abs(g_c[k] - g_p[k]).max() / max(np.abs(g_p[k]).max(), 1e-30))
+            for k in PARAM_FIELDS + ("confidence",)}
+    alive_same = bool(np.array_equal(g_c["alive"], g_p["alive"]))
+    print(f"densify card vs CPU at capacity {P} ({n} alive), proximity on, extent {extent:.3e}: "
+          f"counts card {info_c}, CPU {info_p}; alive masks identical {alive_same}; max |diff| "
+          f"/ field max { {k: f'{v:.1e}' for k, v in errs.items()} } (limit {DENSIFY_TOL:g})")
+    require(info_c == info_p and alive_same, "densify: card and CPU counts or masks differ")
+    require(info_p["spawned"] > 0 and info_p["dropped"] > 0 and info_p["pruned"] > 0,
+            "the densify check spawned, dropped or pruned nothing")
+    require(all(v <= DENSIFY_TOL for v in errs.values()), "densify: card and CPU fields differ")
+
+
+def trainer_config():
+    from sdpgs_torch.config import TrainConfig
+
+    cfg = TrainConfig()
+    for k, v in TRAINER_OPTIM.items():
+        setattr(cfg.optim, k, v)
+    return cfg
+
+
+def make_timed_trainer():
+    """The Trainer, with a synchronize at each step and event so their host
+    times can be read: the time between consecutive steps is one whole
+    iteration (step, events, logging), by kind."""
+    from sdpgs_torch.train.loop import Trainer
+
+    class TimedTrainer(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.iter_ms = {False: [], True: []}
+            self.events, self.ladder = [], []
+            self._last = None
+
+        def _step_fn(self, sh_degree, with_pseudo):
+            fn = super()._step_fn(sh_degree, with_pseudo)
+
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                if self._last is not None:
+                    self.iter_ms[self._last[1]].append((now - self._last[0]) * 1e3)
+                self._last = (now, with_pseudo)
+                return fn(*a, **kw)
+            return timed
+
+        def _maybe_densify(self, iteration):
+            g = self.state.gaussians
+            low = (g.alive > 0) & (torch.sigmoid(g.opacity[:, 0].detach())
+                                   < self.cfg.optim.prune_threshold)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = super()._maybe_densify(iteration)
+            if info is not None:
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                self.events.append(dict(
+                    iteration=iteration, ms=ms,
+                    knn=iteration < self.cfg.optim.proximity_until_iter,
+                    low_opacity_removed=int((low & (g.alive == 0)).sum()),
+                    **{k: int(v) for k, v in info._asdict().items()}))
+            return info
+
+        def _set_raster(self, new, msg):
+            self.ladder.append(msg)
+            super()._set_raster(new, msg)
+
+    return TimedTrainer
+
+
+def trainer_phase(dev, raw, work: Path) -> dict:
+    """The Trainer at LLFF width: SyntheticScene (504x378, 3 train views, 1
+    test view, 16 segments, 128 pseudo poses, 60,000 ground-truth points,
+    capacity 131,072), TrainConfig() with a compressed schedule (600
+    iterations; densify at 100-400, proximity at 100; pseudo window
+    301-399; opacity reset at 301; SH degree 1 from 500; eval and a
+    checkpoint at 600) and the DPT-Hybrid (random weights, seed 0, bf16) as
+    the depth net."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.data.synthetic import SyntheticScene
+    from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+    from sdpgs_torch.ops.knn import knn
+    from sdpgs_torch.train.loop import REPROJ_PREFETCH
+    from sdpgs_torch.train.state import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    scene = SyntheticScene(**TRAINER_SCENE, device=dev)
+    scene.model_path = str(work / "trainer")
+    cfg = trainer_config()
+    mono = mono_depth_from_params(
+        raw, arch=DPT_ARCH, dtype=torch.bfloat16 if cfg.model.dpt_bf16 else None,
+        matmul_precision=cfg.model.dpt_matmul_precision, resize_method=cfg.model.dpt_resize,
+        device=dev)
+    trainer = make_timed_trainer()(cfg, scene, mono_depth_fn=mono, device=dev)
+    opt = cfg.optim
+    n_pseudo = sum(opt.start_sample_pseudo < i < opt.end_sample_pseudo
+                   for i in range(1, opt.iterations + 1))
+    n_plain = opt.iterations - n_pseudo
+    n_eval = len(scene.test_cameras) + len(scene.train_cameras)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    hist = trainer.train(log_every=TRAINER_LOG_EVERY)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    it_ms = {k: (statistics.median(v), len(v)) for k, v in trainer.iter_ms.items()}
+
+    by_iter = {h["iter"]: h for h in hist}
+    print(f"trainer: {opt.iterations} iterations ({n_plain} plain, {n_pseudo} pseudo) at "
+          f"{WIDTH}x{HEIGHT}, {TRAINER_SCENE['n_points']} ground-truth points, capacity "
+          f"{TRAINER_SCENE['capacity']}, in {train_s:.1f} s; launches {launches}; plain calls "
+          f"{plain}")
+    for e in trainer.events:
+        print(f"  densify at {e['iteration']}: {e['ms']:.1f} ms ({'with' if e['knn'] else 'without'}"
+              f" the k-NN), spawned {e['spawned']}, dropped {e['dropped']}, pruned {e['pruned']} "
+              f"(low opacity {e['low_opacity_removed']}), alive after {e['num_alive']}")
+    print(f"  ladder reactions: {trainer.ladder or 'none'}; raster K "
+          f"{trainer.cfg.raster.max_per_tile}, D {trainer.cfg.raster.max_tiles_per_gaussian}")
+    print(f"  history: {[(h['iter'], round(h['loss'], 5), round(h['psnr'], 2), h['alive']) for h in hist]}")
+    require(launches["preprocess"] == launches["binning"] == launches["composite"]
+            == n_plain + 2 * n_pseudo + n_eval,
+            "K1-K3 did not launch once per plain iteration, twice per pseudo one and once "
+            "per eval view")
+    require(launches["preprocess_bwd"] == launches["composite_bwd"] == n_plain + 2 * n_pseudo,
+            "K4-K5 did not launch once per plain iteration and twice per pseudo one")
+    require(launches["warp_zbuf"] == -(-n_pseudo // REPROJ_PREFETCH),
+            "K6 did not launch once per prefetch")
+    require(launches["sort"] == launches["launch_floor"] == 0 and not any(plain.values()),
+            "K7/K8 or a plain version ran on the Trainer path")
+    events = [i for i in range(opt.densify_from_iter + 1, opt.densify_until_iter)
+              if i % opt.densification_interval == 0]
+    require([e["iteration"] for e in trainer.events] == events,
+            f"the densify events are not at {events}")
+    require(any(e["spawned"] > 0 for e in trainer.events), "no densify event spawned")
+    require(any(e["low_opacity_removed"] > 0 for e in trainer.events
+                if e["iteration"] > opt.start_sample_pseudo + 1),
+            "the prune after the opacity reset removed nothing")
+    # before the opacity reset (tests/test_trainer.py:99-103)
+    first, before_reset = TRAINER_LOG_EVERY, opt.start_sample_pseudo
+    require(by_iter[before_reset]["psnr"] > by_iter[first]["psnr"],
+            f"train PSNR did not rise from {first} to {before_reset}")
+    require(math.isfinite(hist[-1]["loss"]), "the final loss is not finite")
+    mp = Path(scene.model_path)
+    report = json.loads((mp / "eval_results.json").read_text())
+    history = json.loads((mp / "training_history.json").read_text())
+    require(report and report[-1]["iteration"] == opt.iterations and history == hist,
+            "eval_results.json / training_history.json not written")
+    print(f"  eval at {opt.iterations}: test {report[-1]['test']}, train {report[-1]['train']}")
+    back = restore_checkpoint(mp / "checkpoints", opt.iterations, trainer.state)
+    a, b = back.to_numpy(), trainer.state.to_numpy()
+    same = all(np.array_equal(a[k][f], b[k][f]) for k in ("gaussians", "mu", "nu", "stats")
+               for f in a[k]) and all(a[k] == b[k] for k in ("step", "adam_step"))
+    require(same, "the checkpoint does not restore to equal arrays")
+    del back
+
+    # bare steps, the k-NN alone
+    batch = trainer._next_batch()
+    bg, protos, lr = trainer.bg, trainer.prototypes, trainer.spatial_lr_scale
+    bare = {}
+    for kind in (False, True):
+        step = trainer._step_fn(0 if kind else 1, kind)
+        times = []
+        for _ in range(BARE_STEPS):
+            pseudo = None
+            if kind:
+                pseudo = pseudo_inputs_from(trainer, *trainer._next_pseudo_reproj())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(trainer.state, batch, protos, bg, lr, pseudo, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        bare[kind] = statistics.median(times[TRAIN_WARMUP:])
+    g = trainer.state.gaussians
+    knn_ms = cuda_ms(lambda: knn(g.xyz.detach(), k=3, mask=g.alive, device=dev), reps=3)
+    ev = {k: [e["ms"] for e in trainer.events if e["knn"] == k] for k in (True, False)}
+    wall = time.perf_counter() - t_phase
+    print(f"  ms per iteration inside train() (median, one synchronize per iteration): plain "
+          f"{it_ms[False][0]:.3f} (of {it_ms[False][1]}), pseudo {it_ms[True][0]:.3f} (of "
+          f"{it_ms[True][1]}); the same steps called bare: plain {bare[False]:.3f}, "
+          f"pseudo {bare[True]:.3f}; densify event with the k-NN {ev[True]} ms, without "
+          f"{ev[False]} ms; k-NN alone at {g.capacity} slots {knn_ms:.1f} ms; peak device memory "
+          f"{peak / 2**20:.1f} MiB; phase wall time {wall:.1f} s")
+    return dict(launches=launches, scene=scene, it_ms=it_ms, bare=bare, knn_ms=knn_ms,
+                peak=peak)
+
+
+def pseudo_inputs_from(trainer, cam, fused, weight, R, t):
+    """PseudoInputs from one entry of the Trainer's prefetch queue."""
+    from sdpgs_torch.train.step import PseudoInputs
+
+    return PseudoInputs(camera=cam, train_depths=trainer._train_depths, K=trainer._K,
+                        R_train=trainer._R_train, t_train=trainer._t_train, R_pseudo=R,
+                        t_pseudo=t, reproj_fused=fused, reproj_weight=weight)
+
+
+def forced_ladder(dev, scene) -> None:
+    """A Trainer on the same scene with tight K and D (tile 16, K 128, D
+    2): at the next log point it doubles both and resets the running
+    maxima."""
+    from sdpgs_torch.config import RasterizeConfig, TrainConfig
+    from sdpgs_torch.train.loop import Trainer
+
+    cfg = TrainConfig(raster=RasterizeConfig(tile=16, max_per_tile=128, max_tiles_per_gaussian=2))
+    cfg.optim.densify_until_iter = 0
+    cfg.optim.start_sample_pseudo = 10_000
+    cfg.optim.test_iterations = cfg.optim.checkpoint_iterations = ()
+    scene.model_path = ""
+    trainer = Trainer(cfg, scene, device=dev)
+    trainer.train(iterations=2, log_every=2)
+    r = trainer.cfg.raster
+    maxima = [int(getattr(trainer.state, k)) for k in ("max_overflow", "max_clipped")]
+    print(f"forced ladder: K 128 -> {r.max_per_tile}, D 2 -> {r.max_tiles_per_gaussian}, running "
+          f"maxima after the reaction {maxima}")
+    require(r.max_per_tile == 256 and r.max_tiles_per_gaussian == 4 and maxima == [0, 0],
+            "the ladder did not double K and D and reset the running maxima")
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -962,7 +1389,8 @@ def main(device: str = "cuda") -> int:
 
 
 def drive(dev: torch.device, work: Path) -> int:
-    """Phases 2-10 on ``dev``, writing the PLY and the renders under ``work``."""
+    """Phases 2-11 on ``dev``, writing the PLY, the renders and the Trainer's files
+    under ``work``."""
     from sdpgs_torch import _kernels
     from sdpgs_torch.cli.render_cli import render_set
     from sdpgs_torch.config import RasterizeConfig
@@ -971,7 +1399,9 @@ def drive(dev: torch.device, work: Path) -> int:
     from sdpgs_torch.data.camera_utils import LoadedCamera
     from sdpgs_torch.data.ply import load_gaussians_ply, save_gaussians_ply
     from sdpgs_torch.ops import warp
+    from sdpgs_torch.ops.launch_floor import launch_floor, launch_floor_plain
     from sdpgs_torch.ops.rasterize import binning, composite_cuda, preprocess_cuda
+    from sdpgs_torch.ops.sort import sort_by_key, sort_by_key_plain
     from sdpgs_torch.render import render
 
     # -- 1-2. card and kernel build ---------------------------------------
@@ -980,6 +1410,9 @@ def drive(dev: torch.device, work: Path) -> int:
     for line in _kernels.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+
+    # -- K7's own path: the stable depth sort ------------------------------
+    sort = sort_phase(np.random.default_rng(4), dev)
 
     # -- 3. the full-width scene, through a PLY ---------------------------
     cfg = RasterizeConfig()
@@ -998,6 +1431,7 @@ def drive(dev: torch.device, work: Path) -> int:
           f"tile {cfg.tile}, K {cfg.max_per_tile}, D {cfg.max_tiles_per_gaussian}")
 
     main_check = check_kernels(g, cams[0], cfg, "main config")
+    probe = probe_phase(main_check)
     check_poisoned_conic(main_check["k3_args"], cfg)
     check_clamped_alpha(main_check["k3_args"], cfg)
     # capacity edges the main scene never reaches: K overflow, D clipping
@@ -1028,8 +1462,8 @@ def drive(dev: torch.device, work: Path) -> int:
           f"plain calls {plain}")
     require(all(launches[k] == VIEWS for k in _kernels.FORWARD_KERNELS),
             "a forward kernel was not launched once per view")
-    require(not any(launches[k] for k in _kernels.BACKWARD_KERNELS + _kernels.WARP_KERNELS),
-            "a backward or warp kernel ran on the render path")
+    require(not any(launches[k] for k in _kernels.KERNELS if k not in _kernels.FORWARD_KERNELS),
+            "a kernel other than K1-K3 ran on the render path")
     require(not any(plain.values()), "a plain version ran on the render path")
     base = out_root / "test" / "ours_0"
     for i in range(VIEWS):
@@ -1072,7 +1506,7 @@ def drive(dev: torch.device, work: Path) -> int:
 
     # -- 8. training: card vs CPU, then the full-width train steps --------
     check_step_card_vs_cpu(rng, dev)
-    train = train_phase(rng, dev)
+    train_phase(rng, dev)
 
     # -- 9. pseudo-view training: K6, the depth net, the pseudo steps ------
     _, pdata = train_scene(rng, dev, WIDTH, HEIGHT, CAPACITY, ALIVE)
@@ -1081,7 +1515,12 @@ def drive(dev: torch.device, work: Path) -> int:
     check_pseudo_step_card_vs_cpu(rng, dev, dnet["raw"])
     pseudo = pseudo_train_phase(rng, dev, dnet["raw"])
 
-    # -- 10. kernel timings and bounds --------------------------------------
+    # -- 10. the Trainer: densify on the card, the loop, the ladder ---------
+    check_densify_card_vs_cpu(np.random.default_rng(5), dev)
+    trainer = trainer_phase(dev, dnet["raw"], work)
+    forced_ladder(dev, trainer["scene"])
+
+    # -- 11. kernel timings and bounds --------------------------------------
     k1_args, k2_args, k3_args = (main_check[k] for k in ("k1_args", "k2_args", "k3_args"))
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
@@ -1105,6 +1544,13 @@ def drive(dev: torch.device, work: Path) -> int:
         zbuf = torch.full((pc.shape[0] * HEIGHT * WIDTH + 1,), float("inf"), device=dev)
         k6_lib = cuda_ms(lambda: zbuf.scatter_reduce_(0, idx, zv, reduce="amin"))
         del idx, zv, zbuf
+        sort_args, probe_args = sort["args"], probe["args"]
+        k7_ms = cuda_ms(lambda: sort_by_key(*sort_args, device=dev))
+        k7_plain = cuda_ms(lambda: sort_by_key_plain(*sort_args))
+        k7_lib = cuda_ms(lambda: library_sort(*sort_args))
+        k8_ms = cuda_ms(lambda: launch_floor(*probe_args, device=dev))
+        k8_plain = cuda_ms(lambda: launch_floor_plain(*probe_args))
+        k8_lib = cuda_ms(lambda: probe_args[0] + probe_args[1] + probe_args[2][:, 0])
     nsh = 3 * (SH_DEGREE + 1) ** 2
     npix = cfg.tile ** 2
     payload_bytes = main_check["payload_numel"] * 4
@@ -1114,6 +1560,8 @@ def drive(dev: torch.device, work: Path) -> int:
     k4_bytes = (K4_BYTES_ROWS + 2 * nsh) * 4 * CAPACITY
     k5_bytes = 2 * payload_bytes + (T * K + T * npix * (composite_cuda.NCH + 3)) * 4
     k6_bytes = (pc.shape[0] + depths.shape[0]) * HEIGHT * WIDTH * 4 + pc.numel() * 4
+    k7_bytes = SORT_BYTES * sort_args[0].numel()
+    k8_bytes = PROBE_BYTES * probe_args[0].numel()
 
     def bound(nbytes, ops=0):
         return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
@@ -1124,36 +1572,42 @@ def drive(dev: torch.device, work: Path) -> int:
         "k4": bound(k4_bytes),
         "k5": bound(k5_bytes, main_check["walked"] * ALPHA_OPS + contrib * GRAD_OPS),
         "k6": bound(k6_bytes, warp_check["rows"] * WARP_OPS),
+        "k7": bound(k7_bytes), "k8": bound(k8_bytes),
     }
     rast = "sdpgs_tpu/ops/rasterize/"
-    per_view, per_step = (launches, VIEWS, "view"), (train["launches"], TRAIN_STEPS, "train step")
-    per_pseudo = (pseudo["launches"], PSEUDO_STEPS, "pseudo step")
+    # launches: K1-K6 on the Trainer's run (this slice's main path; the
+    # render, train and pseudo paths printed theirs above), K7 and K8 on
+    # their own paths
+    tr, per_tr = trainer["launches"], "on the Trainer run"
     rows = [
         ("preprocess_sh_fwd", "preprocess.cu", rast + "preprocess_pallas.py:227", "preprocess",
-         per_view, "k1", main_check["k1_err"], k1_ms, k1_plain, None),
-        ("bin_table", "binning.cu", rast + "rank_pallas.py:851", "binning", per_view, "k2",
+         tr, per_tr, "k1", main_check["k1_err"], k1_ms, k1_plain, None),
+        ("bin_table", "binning.cu", rast + "rank_pallas.py:851", "binning", tr, per_tr, "k2",
          main_check["k2_err"], k2_ms, k2_plain, None),
         ("composite_fwd", "composite.cu", rast + "composite_pallas.py:283", "composite",
-         per_view, "k3", main_check["k3_err"], k3_ms, k3_plain, None),
+         tr, per_tr, "k3", main_check["k3_err"], k3_ms, k3_plain, None),
         ("preprocess_sh_bwd", "preprocess_bwd.cu", rast + "preprocess_pallas.py:236",
-         "preprocess_bwd", per_step, "k4", main_check["k4_err"], k4_ms, k4_plain, None),
+         "preprocess_bwd", tr, per_tr, "k4", main_check["k4_err"], k4_ms, k4_plain, None),
         ("composite_bwd", "composite_bwd.cu", rast + "composite_pallas.py:318", "composite_bwd",
-         per_step, "k5", main_check["k5_err"], k5_ms, k5_plain, None),
+         tr, per_tr, "k5", main_check["k5_err"], k5_ms, k5_plain, None),
         ("warp_zbuffer", "warp_zbuf.cu", "sdpgs_tpu/ops/warp_pallas.py:115", "warp_zbuf",
-         per_pseudo, "k6", warp_check["err"], k6_ms, k6_plain, k6_lib),
+         tr, per_tr, "k6", warp_check["err"], k6_ms, k6_plain, k6_lib),
+        ("sort_by_key", "sort.cu", "sdpgs_tpu/ops/sort_pallas.py:178", "sort", sort["launches"],
+         "on the sort path (N = 2^17, 2^16)", "k7", sort["err"], k7_ms, k7_plain, k7_lib),
+        ("launch_floor", "launch_floor.cu", "scripts/perf_rank_variants.py:58", "launch_floor",
+         probe["launches"], "on the probe path", "k8", probe["err"], k8_ms, k8_plain, k8_lib),
     ]
     records = [
         dict(name=name, route="cuda", source=f"sdpgs_torch/csrc/{src}", replaces=rep,
              launches=counts[kern], max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bounds[b][0], bound_by=bounds[b][1], library_ms=lib_ms)
-        for name, src, rep, kern, (counts, _, _), b, err, ms, plain_ms, lib_ms in rows
+        for name, src, rep, kern, counts, _, b, err, ms, plain_ms, lib_ms in rows
     ]
     for r, row in zip(records, rows):
-        _, n_runs, per = row[4]
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms{lib}), bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
-              f"{r['launches'] / n_runs:g} launch per {per}")
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, {r['launches']} launches "
+              f"{row[5]}")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ The PyTorch counterpart of ``sdpgs_tpu``: module names mirror that package
 so each function's reference is easy to find. It imports neither JAX nor
 anything of ``sdpgs_tpu``.
 
-So far the port covers three paths. Serving: load a trained cloud from a
+So far the port covers four paths. Serving: load a trained cloud from a
 PLY, render views (preprocess + SH, tile binning, compositing) and write
 them out (``cli/render_cli.render_set``). Training: the plain train step
 (``train/step.make_train_step``), one combined loss, one backward and one
@@ -13,11 +13,17 @@ which renders a second view from a pseudo camera and adds the depth net's
 Pearson (``models/``: DPT-Hybrid, differentiable into the image), the
 per-segment Pearson and the reprojection consistency against z-buffers
 that ``train/loop.prefetch_pseudo_reproj`` builds for 64 pseudo cameras at
-a time. Six kernels in ``csrc/`` carry them on the card: three forward
-(preprocess, binning, compositing), two backward (preprocess,
-compositing) and the reprojection z-buffer. Beside each wrapper sits a
-plain PyTorch version of the same function, used for CPU tensors and as
-the kernel's check.
+a time. The training loop: ``train/loop.Trainer`` runs both steps on a
+schedule with densify and prune (``opt/densify.py``, the k-NN of
+``ops/knn.py``), the opacity reset, the capacity ladder, evaluation and
+checkpoints, on an in-memory ``data/synthetic.SyntheticScene``. Eight
+kernels in ``csrc/`` carry them on the card: three forward (preprocess,
+binning, compositing), two backward (preprocess, compositing), the
+reprojection z-buffer, and two that serve their own entry points, the
+stable depth sort (``ops/sort.py``) and the launch-floor probe
+(``ops/launch_floor.py``). Beside each wrapper sits a plain PyTorch
+version of the same function, used for CPU tensors and as the kernel's
+check.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without that request they raise.

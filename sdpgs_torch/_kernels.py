@@ -13,7 +13,10 @@ and every plain version adds one to ``PLAIN_CALLS[name]``, so a run can
 show which path it took. K1-K3 (``FORWARD_KERNELS``) run on every render;
 K4 and K5 (``BACKWARD_KERNELS``) run in the backward of a train step; K6
 (``WARP_KERNELS``) builds the reprojection z-buffers of the pseudo-view
-branch.
+branch. K7 (``SORT_KERNELS``, the stable depth sort of ``ops/sort.py``)
+and K8 (``PROBE_KERNELS``, the launch-floor probe of
+``ops/launch_floor.py``) each serve their own entry point and lie on no
+render or train path.
 """
 
 from __future__ import annotations
@@ -44,11 +47,15 @@ SOURCES = {
     "composite_bwd.cu": [],
     # K6's u, v and z round exactly as its plain version's do
     "warp_zbuf.cu": ["-fmad=false"],
+    "sort.cu": [],
+    "launch_floor.cu": [],
 }
 FORWARD_KERNELS = ("preprocess", "binning", "composite")
 BACKWARD_KERNELS = ("preprocess_bwd", "composite_bwd")
 WARP_KERNELS = ("warp_zbuf",)
-KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS
+SORT_KERNELS = ("sort",)
+PROBE_KERNELS = ("launch_floor",)
+KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS + SORT_KERNELS + PROBE_KERNELS
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -74,6 +81,10 @@ _SIGNATURES = {
     "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # depths, pc, out, n_pairs, V, H, W, stream
     "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # key, val, gid, key_out, val_out, gid_out, n, stream
+    "sdpgs_sort_by_key": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # packed, gid, tid, out, P, D, stream
+    "sdpgs_launch_floor": [_P, _P, _P, _P, _I, _I, _P],
 }
 _lib = None
 

@@ -124,16 +124,22 @@ def create_from_points(
     initial_opacity: float = 0.1,
     device=None,
 ) -> Gaussians:
-    """Initialize from a point cloud (reference gaussian_model.py:189-214).
+    """Initialize from a point cloud (reference gaussian_model.py:189-214)
+    on ``device`` (``cuda`` unless the caller asks for another).
 
-    ``init_scale`` ([N], mean squared distance to the 3 nearest neighbours)
-    is required: the k-NN that computes it is not ported yet."""
+    ``init_scale`` ([N]) is the mean squared distance to the 3 nearest
+    neighbours; without it the k-NN computes it on ``device``."""
+    from sdpgs_torch import default_device
+
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"{n} points exceed capacity {capacity}")
+    dev = default_device(device)
     if init_scale is None:
-        raise NotImplementedError("create_from_points needs init_scale: the k-NN "
-                                  "initialisation is not ported yet")
+        from sdpgs_torch.ops.knn import mean_sq_dist_to_knn
+
+        pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
+        init_scale = mean_sq_dist_to_knn(pts, k=3, device=dev).cpu().numpy()
     dist2 = np.clip(init_scale, 1e-7, None)
     log_scale = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1)
     K = sh_lib.num_sh_coeffs(max_sh_degree)
@@ -163,4 +169,25 @@ def create_from_points(
         language_feature=pad(np.asarray(features, np.float32)),
         alive=alive,
         confidence=pad(np.ones((n, 1), np.float32), fill=1.0),
-    ), max_sh_degree=max_sh_degree, device=device)
+    ), max_sh_degree=max_sh_degree, device=dev)
+
+
+def random_init(generator: torch.Generator, num_points: int, capacity: int,
+                extent: float = 1.3, max_sh_degree: int = 3, device=None) -> Gaussians:
+    """Random point-cloud init used when no MVS fusion exists (reference
+    dataset_readers.py:540-556: uniform in a scaled box, SH from random
+    colours), drawn from ``generator`` (on its own device), then
+    initialised on ``device`` as :func:`create_from_points`."""
+    draw = dict(generator=generator, device=generator.device)
+    pts = (torch.rand((num_points, 3), **draw) * 2.0 - 1.0) * extent
+    cols = torch.rand((num_points, 3), **draw)
+    return create_from_points(pts.cpu().numpy(), cols.cpu().numpy(), capacity, max_sh_degree,
+                              device=device)
+
+
+@torch.no_grad()
+def prune_mask(g: Gaussians, mask: torch.Tensor) -> Gaussians:
+    """Kill Gaussians where ``mask`` is True (reference prune_points,
+    gaussian_model.py:478-499): a flip of ``g.alive`` in place."""
+    g.alive.mul_(1.0 - mask.to(torch.float32))
+    return g

@@ -32,7 +32,7 @@ class TrainState:
     opt_state: GaussianAdamState
     stats: DensifyStats
     step: int                    # iteration counter, on the host
-    generator: torch.Generator   # for the sampling of later slices (densify)
+    generator: torch.Generator   # draws densify's split noise
     # Running maxima of the capacity drops since the host last looked
     # (0-d int32 on the device, folded in every step without a sync), so
     # no step's overflow or clipping slips between log points.

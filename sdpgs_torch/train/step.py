@@ -78,9 +78,8 @@ class PseudoInputs(NamedTuple):
     t_train: torch.Tensor          # [V, 3]
     R_pseudo: torch.Tensor         # [3, 3]
     t_pseudo: torch.Tensor         # [3]
-    # Kept for the JAX signature and unused: the port's depth net is a
-    # module that holds its weights.
-    mono_params: object = ()
+    # (JAX's mono_params has no counterpart: the port's depth net is a
+    # module that holds its weights.)
     # The fused reprojection z-buffer (losses.reproject_fused_depth):
     # independent of the Gaussians, so prefetched once per pseudo camera
     # (train/loop.prefetch_pseudo_reproj). None: the warp runs in the step.

@@ -147,8 +147,11 @@ def test_create_from_points_matches(rng):
     gt = tgaussians.create_from_points(pts, cols, cap, init_scale=init, device=CPU)
     for k, v in gt.to_numpy().items():
         np.testing.assert_allclose(v, np.asarray(getattr(gj, k)), rtol=1e-6, atol=0, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tgaussians.create_from_points(pts, cols, cap, device=CPU)
+    # without init_scale both compute it with their k-NN
+    gj = jgaussians.create_from_points(pts, cols, cap)
+    gt = tgaussians.create_from_points(pts, cols, cap, device=CPU)
+    for k, v in gt.to_numpy().items():
+        np.testing.assert_allclose(v, np.asarray(getattr(gj, k)), rtol=1e-6, atol=0, err_msg=k)
 
 
 @pytest.mark.parametrize("deg", [1, 3])
