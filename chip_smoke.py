@@ -10,9 +10,10 @@ points, clouds, images and weights made from a seed:
 
 - the depth sort's own path (K7, ``ops/sort.sort_by_key``, the
   counterpart of scripts/perf_sort.py): N = 2^17 and 2^16 with 40% +inf
-  keys, then N = 2^14 and 2^19 with ties and signed zeros, each
-  bit-identical to torch.sort(stable=True) with its gathers and to the
-  plain version;
+  keys, then N = 2^14 and 2^19 across the f32 line (negatives, +-inf,
+  +-FLT_MAX, the smallest normals, subnormals, signed zeros and ties among
+  each), each bit-identical to torch.sort(stable=True) with its gathers
+  and to the plain version;
 - the launch-floor probe's own path (K8, ``ops/launch_floor``, row C of
   scripts/perf_rank_variants.py) on K2's sorted rects at P = 131,072,
   D = 8, equal to its plain version;
@@ -20,7 +21,8 @@ points, clouds, images and weights made from a seed:
 - serving: a trained-like cloud is written as a PLY and loaded back on the
   card; each kernel (K1-K3 forward, K4-K5 backward) is held against its
   plain PyTorch version on the same inputs at the main and a tight config,
-  K5 also on poisoned conics and where alpha clamps at 0.99;
+  K5 also on poisoned conics and where alpha clamps at 0.99, and in each
+  of those its count of contributing pairs equal to a plain count;
   8 views render through ``render_set``, which must launch K1-K3 once per
   view and nothing else;
 - training: one train step on the card against the same step on the CPU
@@ -51,11 +53,11 @@ points, clouds, images and weights made from a seed:
   with tight K and D must double both at its next log point.
 
 It then times each kernel, its plain version, a render, a train step, a
-pseudo step and the Trainer's iterations and events, and profiles them. Every phase raises on failure, so the
-script exits non-zero and prints no ``ok`` line; it refuses to run
-without a CUDA device. The card's name and power limit are printed first;
-the last two lines are the ``kernels`` JSON record and the ``ok`` JSON
-line.
+pseudo step and the Trainer's iterations and events, and profiles them.
+Every phase raises on failure, so the script exits non-zero and prints no
+``ok`` line; it refuses to run without a CUDA device. The card's name and
+power limit are printed first; the last two lines are the ``kernels`` JSON
+record and the ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -130,9 +132,13 @@ PSEUDO_LOSS_MARGIN = 0.96     # 30 pseudo steps: mean loss of the last cycle < 0
                               # first's (read 1.06301 -> 0.99164, 0.933)
 DPT_ARCH = DPTArch.hybrid()   # the reference's depth net
 SORT_SIZES = (1 << 17, 1 << 16)        # K7's path: scripts/perf_sort.py's shapes
-SORT_EDGE_SIZES = (1 << 14, 1 << 19)   # the domain's ends, with ties and signed zeros
+SORT_EDGE_SIZES = (1 << 14, 1 << 19)   # the domain's ends, keys across the f32 line
+_F32 = np.finfo(np.float32)
+SORT_SPECIALS = (0.0, -0.0, np.inf, -np.inf, 2.5, -2.5, _F32.max, -_F32.max, _F32.tiny,
+                 -_F32.tiny, 1e-40, -1e-40)  # as tests/test_torch_sort.py, with subnormals
 SORT_DEAD = 0.4                        # share of +inf keys (dead slots)
 SORT_BYTES = 24                        # K7 per element: key, payload, gid read and written
+K5_KERNEL = "composite_bwd_kernel"     # K5's name in the profiler's kernel list
 PROBE_D = 8                            # K8: tile slots per rect
 PROBE_BYTES = 4 + 4 + 32 + 4           # K8 per slot: packed, gid, tid's row sector, out
 KNN_TOL = 1e-5                # k-NN card vs CPU: |diff| over |q|^2 + |p|^2, the terms
@@ -238,7 +244,11 @@ def profile_calls(fn, items, unit: str, top: int = 12) -> dict:
           f"{sum(n for _, n in by_kernel.values()) / v:g} device ops per {unit}")
     for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {name[:70]:70s} {us / v:9.1f} us/{unit} x{n / v:g}")
-    return dict(wall_us=wall_us / v, busy_us=busy_us / v)
+    k5_us = sum(us for name, (us, _) in by_kernel.items() if K5_KERNEL in name)
+    if k5_us:
+        print(f"  K5 ({K5_KERNEL}) {k5_us / v:.1f} us per {unit}, "
+              f"{100.0 * k5_us / busy_us:.1f}% of device busy")
+    return dict(wall_us=wall_us / v, busy_us=busy_us / v, k5_us=k5_us / v)
 
 
 def check_kernels(g, cam, cfg, label: str) -> dict:
@@ -339,10 +349,13 @@ def field_errors(got: torch.Tensor, ref: torch.Tensor, tol: float):
     return rel, bad
 
 
-def k5_versus_plain(args, gen, stats=None):
+def k5_versus_plain(args, gen):
     """K3 forward, then K5 and its plain version at seeded random
-    cotangents on the compositing inputs ``args``. Returns (K5's and the
-    plain payload gradient, K5's launch arguments)."""
+    cotangents on the compositing inputs ``args``, and K5's pair counts
+    (the instance with ``stats``), whose contributing pairs must equal
+    contributing_pairs_plain's. Returns (K5's and the plain payload
+    gradient, K5's launch arguments, K5's contributing, clamped and tested
+    pairs)."""
     from sdpgs_torch.ops.rasterize import composite_cuda
 
     payload, table, counts, tiles_x, tiles_y, cfg, P = args
@@ -352,11 +365,46 @@ def k5_versus_plain(args, gen, stats=None):
     g_final_t = torch.randn(tuple(out.final_t.shape), generator=gen, device=dev)
     k5_args = (payload, table, out.final_t, last, g_values, g_final_t, tiles_x, tiles_y,
                cfg, P)
-    d_k = composite_cuda.composite_gather_bwd(*k5_args, stats=stats)
+    d_k = composite_cuda.composite_gather_bwd(*k5_args)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    composite_cuda.composite_gather_bwd(*k5_args, stats=stats)
     d_p = composite_cuda.composite_vjp_plain(*args, g_values, g_final_t,
                                              tiles_per_pass=PLAIN_TILES_PER_PASS)
-    torch.cuda.synchronize()
-    return d_k, d_p, k5_args
+    plain = contributing_pairs_plain(k5_args)
+    pairs = [int(v) for v in stats.tolist()]
+    require(pairs[0] == plain, f"K5 counts {pairs[0]} contributing pairs, the plain count "
+                               f"{plain}: its cull skipped contributing pairs")
+    return d_k, d_p, k5_args, pairs
+
+
+def contributing_pairs_plain(k5_args, chunk: int = 32) -> int:
+    """The contributing (entry, pixel) pairs of K5's inputs, counted in
+    plain PyTorch: the entries of each tile's table before the pixel's last
+    contributor (K3's last_contrib) at which composite.py:76-83's test
+    passes (not power > 0, alpha >= alpha_min), with power rounded as
+    composite_math.cuh:entry_alpha rounds it (each fma's product exact in
+    float64, one rounding to f32), so the count is K3's contributor set."""
+    from sdpgs_torch.ops.rasterize.composite import tile_pixel_coords
+
+    payload, table, _, last, _, _, tiles_x, tiles_y, cfg, P = k5_args
+    dev = payload.device
+    f32, f64 = torch.float32, torch.float64
+    alpha_min = torch.tensor(cfg.alpha_min, dtype=f32, device=dev)
+    alpha_max = torch.tensor(cfg.alpha_max, dtype=f32, device=dev)
+    px, py = (c[:, None, :] for c in tile_pixel_coords(tiles_x, tiles_y, cfg.tile, device=dev))
+    gid = torch.where((table >= 0) & (table <= P), table, P).long()
+    total = 0
+    for k0 in range(0, int(last.max()), chunk):
+        mx, my, a, b, c, op = payload[gid[:, k0:k0 + chunk], :6].unbind(-1)
+        mx, my, a, b, c, op = (v[:, :, None] for v in (mx, my, a, b, c, op))
+        dx, dy = mx - px, my - py
+        q = ((a * dx).to(f64) * dx.to(f64) + ((c * dy) * dy).to(f64)).to(f32)
+        power = -0.5 * q - (b * dx) * dy          # -0.5 q is exact: one rounding, as the fma
+        alpha = torch.clamp_max(op * torch.exp(power), alpha_max)
+        passes = ~(power > 0.0) & ~(alpha < alpha_min)
+        k = torch.arange(k0, k0 + passes.shape[1], device=dev)
+        total += int((passes & (k[None, :, None] < last[:, None, :])).sum())
+    return total
 
 
 def k5_errors(d_k: torch.Tensor, d_p: torch.Tensor):
@@ -382,13 +430,15 @@ def check_poisoned_conic(k3_args, cfg) -> None:
     pay[hit, 3] = 0.0
     pay[hit, 4] = -500.0
     with torch.no_grad():
-        d_k, d_p, _ = k5_versus_plain((pay, table, counts, tiles_x, tiles_y, cfg, P), gen)
+        d_k, d_p, _, (contrib, _, _) = k5_versus_plain(
+            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen)
     _, rows_bad, rows_live, err = k5_errors(d_k, d_p)
     finite = bool(torch.isfinite(d_k).all())
     hit_zero = not bool(d_k[hit].any())
     print(f"  K5 poisoned conics ({hit.numel()} rows at a = c = -500): finite {finite}, "
           f"poisoned rows all zero {hit_zero}, rows beyond {K5_TOL:g} x column max "
-          f"{rows_bad} of {rows_live}, max |diff| {err:.3e}")
+          f"{rows_bad} of {rows_live}, max |diff| {err:.3e}; contributing pairs {contrib} "
+          f"(= the plain count)")
     require(finite and hit_zero and rows_bad == 0,
             "K5 on poisoned conics is not finite or disagrees")
 
@@ -407,16 +457,14 @@ def check_clamped_alpha(k3_args, cfg) -> None:
     hit = torch.unique(table[table < P])[::10]
     pay[hit, 2:5] *= 0.01
     pay[hit, 5] = 0.999
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
     with torch.no_grad():
-        d_k, d_p, _ = k5_versus_plain((pay, table, counts, tiles_x, tiles_y, cfg, P), gen,
-                                      stats)
+        d_k, d_p, _, (contrib, clamped, _) = k5_versus_plain(
+            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen)
     rel, rows_bad, rows_live, err = k5_errors(d_k, d_p)
-    contrib, clamped = (int(v) for v in stats.tolist())
     print(f"  K5 clamped alpha ({hit.numel()} rows at opacity 0.999): contributing pairs "
           f"{contrib}, clamped at {cfg.alpha_max:g} {clamped}; rows beyond {K5_TOL:g} x "
           f"column max {rows_bad} of {rows_live}, max |diff| / column max "
-          f"{float(rel.max()):.1e}, max |diff| {err:.3e}")
+          f"{float(rel.max()):.1e}, max |diff| {err:.3e}; contributing pairs = the plain count")
     require(clamped > 0, "the clamp phase reached no clamped pair")
     require(bool(torch.isfinite(d_k).all()) and rows_bad == 0,
             "K5 disagrees where alpha is clamped")
@@ -453,20 +501,19 @@ def check_backward_kernels(g, label: str, k1_args, k3_args) -> dict:
                 f"[{label}] K4 disagrees")
 
         # -- K5 vs plain: the payload gradient at random cotangents --------
-        stats = torch.zeros(2, dtype=torch.int64, device=dev)
-        d_k, d_p, k5_args = k5_versus_plain(k3_args, gen, stats)
+        d_k, d_p, k5_args, (contrib, clamped, tested) = k5_versus_plain(k3_args, gen)
         rel5, rows_bad, rows_live, k5_err = k5_errors(d_k, d_p)
         walked = int(k5_args[3].sum())   # up to each pixel's last contributor
-        contrib, clamped = (int(v) for v in stats.tolist())
         print(f"  K5 composite bwd: payload rows beyond {K5_TOL:g} x column max {rows_bad} of "
               f"{rows_live} with a gradient (limit 0), max |diff| / column max "
               f"{[f'{v:.1e}' for v in rel5.tolist()]}, max |diff| {k5_err:.3e}; "
-              f"(entry, pixel) pairs walked {walked}, contributing {contrib} (clamped "
-              f"{clamped})")
+              f"(entry, pixel) pairs up to each pixel's last contributor {walked}, tested "
+              f"{tested}, contributing {contrib} (= the plain count; clamped {clamped})")
         require(bool(torch.isfinite(d_k).all()) and rows_bad == 0, f"[{label}] K5 disagrees")
+        require(0 < contrib <= tested <= walked, f"[{label}] K5's pair counts are inconsistent")
     return dict(k4_args=(*k1_args[:3], ct, *k1_args[3:]), k4_err=k4_err,
                 k5_args=k5_args, k5_plain_args=(*k3_args, *k5_args[4:6]),
-                k5_err=k5_err, walked=walked, contrib=contrib)
+                k5_err=k5_err, contrib=contrib)
 
 
 def perturb(arrays: dict, rng) -> dict:
@@ -992,14 +1039,15 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
 
 def sort_inputs(rng, n: int, dead: float, edge: bool, dev):
     """perf_sort.py's inputs: depths in [1, 9) with a share of +inf (dead
-    slots), random payloads, gid = arange(n); ``edge`` adds 5% ties and
-    signed zeros (tests/test_sort_pallas.py)."""
+    slots), random payloads, gid = arange(n); ``edge`` negates a fifth of
+    the keys (-inf among them) and sets 30% to SORT_SPECIALS, so each
+    special value ties many times (tests/test_torch_sort.py:edge_inputs)."""
     depth = rng.uniform(1, 9, n).astype(np.float32)
     depth[rng.random(n) < dead] = np.inf
     if edge:
-        depth[rng.random(n) < 0.05] = 2.5
-        depth[rng.random(n) < 0.03] = 0.0
-        depth[rng.random(n) < 0.03] = -0.0
+        depth[rng.random(n) < 0.2] *= -1
+        pick = rng.random(n) < 0.3
+        depth[pick] = rng.choice(np.array(SORT_SPECIALS, np.float32), int(pick.sum()))
     packed = rng.integers(0, 1 << 30, n).astype(np.int32)
     return tuple(torch.from_numpy(a).to(dev) for a in (depth, packed, np.arange(n, dtype=np.int32)))
 
@@ -1021,7 +1069,7 @@ def sort_phase(rng, dev) -> dict:
     """K7's own path, the counterpart of scripts/perf_sort.py: the stable
     sort at N = 2^17 and 2^16 with 40% +inf keys; each result bit-identical
     to torch.sort(stable=True) with its gathers and to the plain version,
-    also at N = 2^14 and 2^19 with ties and signed zeros."""
+    also at N = 2^14 and 2^19 with keys across the f32 line."""
     from sdpgs_torch import _kernels
     from sdpgs_torch.ops.sort import sort_by_key, sort_by_key_plain
 
@@ -1037,7 +1085,8 @@ def sort_phase(rng, dev) -> dict:
     cases = {**{(n, "40% inf"): (main[n], outs[n]) for n in SORT_SIZES}}
     for n in SORT_EDGE_SIZES:
         args = sort_inputs(rng, n, SORT_DEAD, True, dev)
-        cases[(n, "inf, ties, signed zeros")] = (args, sort_by_key(*args, device=dev))
+        cases[(n, "negatives, +-inf, +-max, subnormals, signed zeros, ties")] = (
+            args, sort_by_key(*args, device=dev))
     err = 0.0
     for (n, label), (args, got) in cases.items():
         lib = library_sort(*args)
@@ -1049,12 +1098,14 @@ def sort_phase(rng, dev) -> dict:
                   *(float((a - b).abs().max()) for a, b in zip(got[1:], ref[1:])))
         zeros = int((got[0] == 0).sum())
         print(f"  K7 sort N=2^{n.bit_length() - 1} ({label}): keys, payload, gids bit-identical "
-              f"to torch.sort(stable) + gathers and to the plain version {same}; inf keys "
-              f"{int(torch.isinf(got[0]).sum())}, zeros {zeros} (negative "
+              f"to torch.sort(stable) + gathers and to the plain version {same}; keys < 0 "
+              f"{int((got[0] < 0).sum())}, inf keys {int(torch.isinf(got[0]).sum())} (-inf "
+              f"{int((got[0] == -math.inf).sum())}), zeros {zeros} (negative "
               f"{int(torch.signbit(got[0][got[0] == 0]).sum())})")
         require(all(same), f"K7 disagrees at N={n} ({label})")
     print(f"sort path: launches {launches}")
-    return dict(launches=launches, args=main[SORT_SIZES[0]], err=err)
+    args_by_n = {n: args for (n, _), (args, _) in sorted(cases.items())}
+    return dict(launches=launches, args=main[SORT_SIZES[0]], args_by_n=args_by_n, err=err)
 
 
 def rect_tids(packed_s: torch.Tensor, tiles_x: int, D: int) -> torch.Tensor:
@@ -1548,6 +1599,11 @@ def drive(dev: torch.device, work: Path) -> int:
         k7_ms = cuda_ms(lambda: sort_by_key(*sort_args, device=dev))
         k7_plain = cuda_ms(lambda: sort_by_key_plain(*sort_args))
         k7_lib = cuda_ms(lambda: library_sort(*sort_args))
+        for n, args in sort["args_by_n"].items():
+            if args is not sort_args:
+                print(f"  sort_by_key at N=2^{n.bit_length() - 1}: "
+                      f"{cuda_ms(lambda: sort_by_key(*args, device=dev)):.4f} ms, library "
+                      f"{cuda_ms(lambda: library_sort(*args)):.4f} ms")
         k8_ms = cuda_ms(lambda: launch_floor(*probe_args, device=dev))
         k8_plain = cuda_ms(lambda: launch_floor_plain(*probe_args))
         k8_lib = cuda_ms(lambda: probe_args[0] + probe_args[1] + probe_args[2][:, 0])
@@ -1570,7 +1626,7 @@ def drive(dev: torch.device, work: Path) -> int:
         "k1": bound(k1_bytes), "k2": bound(k2_bytes),
         "k3": bound(k3_bytes, pairs * ALPHA_OPS + contrib * BLEND_OPS),
         "k4": bound(k4_bytes),
-        "k5": bound(k5_bytes, main_check["walked"] * ALPHA_OPS + contrib * GRAD_OPS),
+        "k5": bound(k5_bytes, contrib * (ALPHA_OPS + GRAD_OPS)),
         "k6": bound(k6_bytes, warp_check["rows"] * WARP_OPS),
         "k7": bound(k7_bytes), "k8": bound(k8_bytes),
     }

@@ -81,8 +81,11 @@ _SIGNATURES = {
     "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
     # depths, pc, out, n_pairs, V, H, W, stream
     "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # key, val, gid, key_out, val_out, gid_out, n, stream
-    "sdpgs_sort_by_key": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # key, val, gid, key_out, val_out, gid_out, key_tmp, val_tmp, gid_tmp,
+    # scratch, n, stream
+    "sdpgs_sort_by_key": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # n -> int32 words of scratch
+    "sdpgs_sort_scratch_words": [_I],
     # packed, gid, tid, out, P, D, stream
     "sdpgs_launch_floor": [_P, _P, _P, _P, _I, _I, _P],
 }

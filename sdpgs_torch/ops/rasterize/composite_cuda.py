@@ -109,8 +109,9 @@ def composite_gather_bwd(payload, table, final_t, last, g_values, g_final_t,
     """Launch K5 on CUDA tensors autograd does not track: the payload
     gradient [P+1, 13] (row P zero) at cotangents g_values [T, tile^2, 7]
     and g_final_t [T, tile^2], from K3's final_t and last_contrib.
-    ``stats``, a zeroed int64 [2] tensor, receives the contributing (entry,
-    pixel) pairs and those of them clamped at ``alpha_max``, when given."""
+    ``stats``, a zeroed int64 [3] tensor, receives the contributing (entry,
+    pixel) pairs, those of them clamped at ``alpha_max`` and the pairs K5
+    tested, when given."""
     _check_tiles(payload, table, None, tiles_x, tiles_y, cfg, num_gaussians)
     T = table.shape[0]
     npix = cfg.tile * cfg.tile
@@ -122,7 +123,7 @@ def composite_gather_bwd(payload, table, final_t, last, g_values, g_final_t,
                                   (g_final_t, "g_final_t", torch.float32, (T, npix))):
         _kernels.check(t, name, dtype, shape)
     if stats is not None:
-        _kernels.check(stats, "stats", torch.int64, (2,))
+        _kernels.check(stats, "stats", torch.int64, (3,))
     d_payload = torch.zeros_like(payload)
     _kernels.launch(
         "composite_bwd", "sdpgs_composite_bwd",

@@ -6,9 +6,10 @@ Counterpart of ``sdpgs_tpu/ops/sort_pallas.py``: the drop-in for
 kernel it is wired into nothing: binning sorts with
 ``torch.sort(stable=True)`` (``ops/rasterize/binning.sort_rects``), as JAX
 binning keeps ``lax.sort``. On CUDA tensors it runs kernel K7
-(``csrc/sort.cu``, a bitonic network on the (key, gid) order), on CPU
-tensors its plain version, ``torch.sort(stable=True)`` and two gathers;
-both give the stable sort bit for bit.
+(``csrc/sort.cu``, a least-significant-digit radix sort over
+:func:`sort_bits`), on CPU tensors its plain version,
+``torch.sort(stable=True)`` and two gathers; both give the stable sort bit
+for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +23,18 @@ def sort_supported(N: int) -> bool:
     """The TPU kernel's domain (sort_pallas.py:198): N a power of two in
     [2^14, 2^19]."""
     return (N & (N - 1)) == 0 and (1 << 14) <= N <= (1 << 19)
+
+
+def sort_bits(key: torch.Tensor) -> torch.Tensor:
+    """The order-preserving bits K7 sorts f32 keys by (its CUDA twin is
+    ``csrc/sort.cu:sort_bits``), as int64 in [0, 2^32): -0.0 folded into
+    +0.0, then every bit of a negative key flipped and the sign bit of a
+    non-negative one set. Their order is IEEE ``<`` on keys that are not
+    NaN, and keys that compare equal get equal bits, so a stable sort by
+    them is the stable sort by key."""
+    u = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
 
 
 def sort_by_key_plain(key: torch.Tensor, val1: torch.Tensor, gid: torch.Tensor):
@@ -48,9 +61,10 @@ def sort_by_key(key: torch.Tensor, val1: torch.Tensor, gid: torch.Tensor, device
     for t, name, dtype in ((key, "key", torch.float32), (val1, "val1", torch.int32),
                            (gid, "gid", torch.int32)):
         _kernels.check(t, name, dtype, (N,))
-    ks = torch.empty_like(key)
-    vs = torch.empty_like(val1)
-    gs = torch.empty_like(gid)
+    out = [torch.empty_like(t) for t in (key, val1, gid)]
+    tmp = [torch.empty_like(t) for t in (key, val1, gid)]   # the radix passes' ping-pong
+    scratch = torch.empty(_kernels.lib().sdpgs_sort_scratch_words(N), dtype=torch.int32,
+                          device=key.device)
     _kernels.launch("sort", "sdpgs_sort_by_key", *(_kernels.ptr(t) for t in
-                    (key, val1, gid, ks, vs, gs)), N, _kernels.stream(key.device))
-    return ks, vs, gs
+                    (key, val1, gid, *out, *tmp, scratch)), N, _kernels.stream(key.device))
+    return tuple(out)
