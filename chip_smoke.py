@@ -21,10 +21,14 @@ points, clouds, images and weights made from a seed:
 - serving: a trained-like cloud is written as a PLY and loaded back on the
   card; each kernel (K1-K3 forward, K4-K5 backward) is held against its
   plain PyTorch version on the same inputs at the main and a tight config,
-  K5 also on poisoned conics and where alpha clamps at 0.99, and in each
-  of those its count of contributing pairs equal to a plain count;
-  8 views render through ``render_set``, which must launch K1-K3 once per
-  view and nothing else;
+  K5 also on poisoned conics and where alpha clamps at 0.99; in each of
+  those K3's n_visit and last_contrib equal a plain sequential walk over
+  every entry and K3's and K5's counts of contributing pairs a plain
+  count, so their shared entry cull skipped nothing; K2 and K3 again at
+  tiles 8, 20 and 24, and K2 at n_valid 0, 1 and 3,999, every rect covering
+  every tile, D 1 and the Trainer ladder's K 2048, D 32; 8 views render
+  through ``render_set``, which must launch K1-K3 once per view and
+  nothing else;
 - training: one train step on the card against the same step on the CPU
   at a reduced size, then 30 plain train steps (``make_train_step``) on a
   perturbed copy of a ground-truth cloud, which must lower L1 and launch
@@ -138,8 +142,13 @@ SORT_SPECIALS = (0.0, -0.0, np.inf, -np.inf, 2.5, -2.5, _F32.max, -_F32.max, _F3
                  -_F32.tiny, 1e-40, -1e-40)  # as tests/test_torch_sort.py, with subnormals
 SORT_DEAD = 0.4                        # share of +inf keys (dead slots)
 SORT_BYTES = 24                        # K7 per element: key, payload, gid read and written
-K5_KERNEL = "composite_bwd_kernel"     # K5's name in the profiler's kernel list
+# the redesigned kernels' names in the profiler's kernel list (K2 is two launches)
+PROFILED = {"K2": ("cover_words_kernel", "bin_table_kernel"), "K3": ("composite_fwd_kernel",),
+            "K5": ("composite_bwd_kernel",)}
 PROBE_D = 8                            # K8: tile slots per rect
+EDGE_TILES = (8, 24, 20)               # K2/K3 at tiles the main and tight configs miss
+                                       # (20: 8 does not divide it, K3's row-major blocks)
+LADDER_K, LADDER_D = 2048, 32          # the Trainer cell's K and D after its ladder
 PROBE_BYTES = 4 + 4 + 32 + 4           # K8 per slot: packed, gid, tid's row sector, out
 KNN_TOL = 1e-5                # k-NN card vs CPU: |diff| over |q|^2 + |p|^2, the terms
                               # the formula cancels
@@ -244,18 +253,19 @@ def profile_calls(fn, items, unit: str, top: int = 12) -> dict:
           f"{sum(n for _, n in by_kernel.values()) / v:g} device ops per {unit}")
     for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {name[:70]:70s} {us / v:9.1f} us/{unit} x{n / v:g}")
-    k5_us = sum(us for name, (us, _) in by_kernel.items() if K5_KERNEL in name)
-    if k5_us:
-        print(f"  K5 ({K5_KERNEL}) {k5_us / v:.1f} us per {unit}, "
-              f"{100.0 * k5_us / busy_us:.1f}% of device busy")
-    return dict(wall_us=wall_us / v, busy_us=busy_us / v, k5_us=k5_us / v)
+    for kern, names in PROFILED.items():
+        us = sum(us for name, (us, _) in by_kernel.items() if any(n in name for n in names))
+        if us:
+            print(f"  {kern} ({', '.join(names)}) {us / v:.1f} us per {unit}, "
+                  f"{100.0 * us / busy_us:.1f}% of device busy")
+    return dict(wall_us=wall_us / v, busy_us=busy_us / v)
 
 
 def check_kernels(g, cam, cfg, label: str) -> dict:
     """Phases 4-6: each kernel against its plain version on the card, on
     the same inputs (K1 -> K2 on K1's output -> K3 on K2's table). Returns
     the inputs and errors the timing phase needs."""
-    from sdpgs_torch.ops.rasterize import binning, composite_cuda, preprocess_cuda
+    from sdpgs_torch.ops.rasterize import binning, preprocess_cuda
     from sdpgs_torch.ops.rasterize.rasterizer import make_payload
 
     tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, cfg.tile)
@@ -286,57 +296,253 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
         require(valid_bad == 0 and radius_bad == 0 and float_bad == 0, f"[{label}] K1 disagrees")
 
         # -- 5. K2 vs plain on the same Preprocessed ----------------------
-        prep = preprocess_cuda.Preprocessed(
-            valid=out_k[0] > 0.0, mean2d=torch.stack([out_k[1], out_k[2]], -1),
-            depth=out_k[3], conic=torch.stack([out_k[4], out_k[5], out_k[6]], -1),
-            radius=out_k[7])
-        color = torch.stack([out_k[8], out_k[9], out_k[10]], -1)
-        packed_s, order, n_valid = binning.sort_rects(prep, WIDTH, HEIGHT, cfg)
-        k2_args = (packed_s, order, n_valid, T, tiles_x, K, D)
-        table_k, totals_k = binning.build_table(*k2_args)
-        table_p, totals_p = binning.build_table_plain(*k2_args)
-        torch.cuda.synchronize()
-        table_same = bool(torch.equal(table_k, table_p))
-        totals_same = bool(torch.equal(totals_k, totals_p))
-        k2_err = max(int((table_k - table_p).abs().max()),
-                     int((totals_k - totals_p).abs().max()))
+        prep, color = preprocess_cuda.split_rows(out_k)
+        k2_args = (*binning.sort_rects(prep, WIDTH, HEIGHT, cfg), T, tiles_x, K, D)
+        k2 = k2_versus_plain(k2_args, label)
         bins = binning.bin_gaussians(prep, WIDTH, HEIGHT, cfg)
-        overflow_p = int(torch.clamp_min(totals_p - K, 0).sum())
-        print(f"  K2 binning: table identical {table_same}, totals identical {totals_same}, "
-              f"n_valid {int(n_valid)}, entries {int(bins.num_entries)}, overflow "
-              f"{int(bins.overflow)} (plain {overflow_p}), clipped {int(bins.clipped)}, "
-              f"max tile count {int(totals_p.max())}")
-        require(table_same and totals_same and int(bins.overflow) == overflow_p
-                and torch.equal(bins.tile_index.reshape(-1), table_p)
-                and torch.equal(bins.tile_counts, torch.clamp_max(totals_p, K)),
-                f"[{label}] K2 disagrees")
+        print(f"  K2 through bin_gaussians: entries {int(bins.num_entries)}, overflow "
+              f"{int(bins.overflow)}, clipped {int(bins.clipped)}")
+        require(int(bins.overflow) == k2["overflow"] and int(bins.clipped) == k2["clipped"]
+                and torch.equal(bins.tile_index.reshape(-1), k2["table"])
+                and torch.equal(bins.tile_counts, torch.clamp_max(k2["totals"], K)),
+                f"[{label}] K2 disagrees through bin_gaussians")
 
         # -- 6. K3 vs plain on the same table and payload -----------------
         payload = make_payload(prep, g.get_opacity()[:, 0], color,
                                g.language_feature_normalized())
-        counts = bins.tile_counts
-        k3_args = (payload, bins.tile_index, counts, tiles_x, tiles_y, cfg, g.capacity)
-        o_k = composite_cuda.composite_gather(*k3_args)
-        o_p = composite_cuda.composite_gather_plain(*k3_args)
-        torch.cuda.synchronize()
-        d_rgb = (o_k.values[..., :3] - o_p.values[..., :3]).abs().amax(-1)
-        d_alpha = (o_k.final_t - o_p.final_t).abs()
-        # depth/feature: relative to max(|plain|, 1), as features cross zero
-        rel = ((o_k.values[..., 3:] - o_p.values[..., 3:]).abs()
-               / o_p.values[..., 3:].abs().clamp_min(1.0)).amax(-1)
-        bad = (d_rgb > 1e-4) | (d_alpha > 1e-4) | (rel > 1e-3)
-        n_bad, npix_all = int(bad.sum()), bad.numel()
-        k3_err = float(torch.maximum(d_rgb, d_alpha).max())
-        pairs = int(o_k.n_visit.sum())
-        print(f"  K3 composite: pixels outside tolerance {n_bad} of {npix_all} "
-              f"(limit 0.1%), max |diff| color/alpha {k3_err:.3e}, depth/feature "
-              f"rel {float(rel.max()):.3e}, (entry, pixel) pairs visited {pairs}")
-        require(n_bad <= npix_all // 1000, f"[{label}] K3 disagrees")
+        k3_args = (payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
+                   g.capacity)
+        k3_err, pairs = k3_versus_plain(k3_args, label)
+        # what K3 and K5 must read: the table's entries below each tile's
+        # count and the payload rows those reference
+        listed = bins.tile_index[torch.arange(K, device=payload.device)[None, :]
+                                 < bins.tile_counts[:, None]]
+        entries, rows_read = listed.numel(), torch.unique(listed).numel()
 
     bwd = check_backward_kernels(g, label, k1_args, k3_args)
     return dict(k1_args=k1_args, k2_args=k2_args, k3_args=k3_args, k1_err=k1_err,
-                k2_err=k2_err, k3_err=k3_err, pairs=pairs, payload_numel=payload.numel(), T=T, K=K,
-                overflow=int(bins.overflow), clipped=int(bins.clipped), **bwd)
+                k2_err=k2["err"], k3_err=k3_err, pairs=pairs, payload_numel=payload.numel(),
+                row_bytes=payload.shape[1] * 4, entries=entries, rows_read=rows_read,
+                n_valid=int(k2_args[2]), T=T, K=K, overflow=k2["overflow"],
+                clipped=k2["clipped"], **bwd)
+
+
+def main_prep(main_check: dict):
+    """The main scene's Preprocessed, from K1 on the main check's inputs."""
+    from sdpgs_torch.ops.rasterize import preprocess_cuda
+
+    return preprocess_cuda.split_rows(preprocess_cuda.preprocess_rows(*main_check["k1_args"]))[0]
+
+
+def k2_versus_plain(k2_args, label: str) -> dict:
+    """K2 and its plain version on the same sorted rects: table and uncapped
+    totals bit-identical, and so the K overflow; the D clipping from the
+    same rects."""
+    from sdpgs_torch.ops.rasterize import binning
+
+    packed_s, order, n_valid, T, tiles_x, K, D = k2_args
+    table_k, totals_k = binning.build_table(*k2_args)
+    table_p, totals_p = binning.build_table_plain(*k2_args)
+    torch.cuda.synchronize()
+    table_same = bool(torch.equal(table_k, table_p))
+    totals_same = bool(torch.equal(totals_k, totals_p))
+    err = max(int((table_k - table_p).abs().max()), int((totals_k - totals_p).abs().max()))
+    overflow_k, overflow_p = (int(torch.clamp_min(t - K, 0).sum()) for t in (totals_k, totals_p))
+    xmin, xmax, ymin, ymax = binning.unpack_rect(packed_s)
+    clipped = int(torch.clamp_min((xmax - xmin) * (ymax - ymin) - D, 0).sum())
+    P = packed_s.shape[0]
+    holes = int(((table_p == P).reshape(T, K)
+                 & (torch.arange(K, device=table_p.device)[None, :]
+                    < torch.clamp_max(totals_p, K)[:, None])).sum())
+    print(f"  K2 binning [{label}]: P {P}, n_valid {int(n_valid)}, {T} tiles, K {K}, D {D}: "
+          f"table identical {table_same}, totals identical {totals_same}, overflow "
+          f"{overflow_k} (plain {overflow_p}), clipped {clipped}, sentinel holes {holes}, "
+          f"max tile count {int(totals_p.max()) if T else 0}")
+    require(table_same and totals_same and overflow_k == overflow_p, f"[{label}] K2 disagrees")
+    return dict(table=table_p, totals=totals_p, err=err, overflow=overflow_p, clipped=clipped,
+                holes=holes)
+
+
+def k3_versus_plain(k3_args, label: str) -> tuple:
+    """K3 against its plain version on the same table and payload: colour
+    and alpha within 1e-4, depth and feature within 1e-3 relative, all but
+    0.1% of pixels. Returns (max |diff| colour/alpha, pairs visited)."""
+    from sdpgs_torch.ops.rasterize import composite_cuda
+
+    o_k = composite_cuda.composite_gather(*k3_args)
+    o_p = composite_cuda.composite_gather_plain(*k3_args)
+    torch.cuda.synchronize()
+    d_rgb = (o_k.values[..., :3] - o_p.values[..., :3]).abs().amax(-1)
+    d_alpha = (o_k.final_t - o_p.final_t).abs()
+    # depth/feature: relative to max(|plain|, 1), as features cross zero
+    rel = ((o_k.values[..., 3:] - o_p.values[..., 3:]).abs()
+           / o_p.values[..., 3:].abs().clamp_min(1.0)).amax(-1)
+    bad = (d_rgb > 1e-4) | (d_alpha > 1e-4) | (rel > 1e-3)
+    n_bad, npix_all = int(bad.sum()), bad.numel()
+    err = float(torch.maximum(d_rgb, d_alpha).max())
+    pairs = int(o_k.n_visit.sum())
+    print(f"  K3 composite [{label}]: pixels outside tolerance {n_bad} of {npix_all} "
+          f"(limit 0.1%), max |diff| color/alpha {err:.3e}, depth/feature "
+          f"rel {float(rel.max()):.3e}, (entry, pixel) pairs visited {pairs}")
+    require(n_bad <= npix_all // 1000, f"[{label}] K3 disagrees")
+    return err, pairs
+
+
+def entry_power_plain(mx, my, a, b, c, px, py):
+    """composite.py:76-83's power with composite_math.cuh:entry_alpha's
+    rounding (each fma's product exact in float64, one rounding to f32)."""
+    f32, f64 = torch.float32, torch.float64
+    dx, dy = mx - px, my - py
+    q = ((a * dx).to(f64) * dx.to(f64) + ((c * dy) * dy).to(f64)).to(f32)
+    return -0.5 * q - (b * dx) * dy          # -0.5 q is exact: one rounding, as the fma
+
+
+def composite_walk_plain(k3_args):
+    """K3's walk in plain PyTorch, one entry at a time over the [T, tile^2]
+    pixels in f32: the power rounded as entry_alpha rounds it, alpha =
+    min(alpha_max, op e^power), an entry skipped where power > 0 or alpha <
+    alpha_min, T = T (1 - alpha) entry by entry, and the stop at the entry
+    that would take T below t_min (not added). Returns (n_visit,
+    last_contrib) [T, tile^2] int32, the entries up to the stop (or the
+    tile's count) and one past the last entry added, and the number of
+    (entry, pixel) pairs added: the contributing pairs, since every pair
+    that passes before the stop is added."""
+    from sdpgs_torch.ops.rasterize.composite import tile_pixel_coords
+
+    payload, table, counts, tiles_x, tiles_y, cfg, P = k3_args
+    dev = payload.device
+    alpha_min, alpha_max, t_min = (torch.tensor(v, dtype=torch.float32, device=dev) for v in
+                                   (cfg.alpha_min, cfg.alpha_max, cfg.transmittance_min))
+    px, py = tile_pixel_coords(tiles_x, tiles_y, cfg.tile, device=dev)
+    gid = torch.where((table >= 0) & (table <= P), table, P).long()
+    trans = torch.ones_like(px)
+    done = torch.zeros(px.shape, dtype=torch.bool, device=dev)
+    visited = counts[:, None].expand(px.shape).clone()
+    last = torch.zeros_like(visited)
+    added = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        live = (k < counts)[:, None] & ~done
+        if k % 64 == 0 and not bool(live.any()):
+            break
+        mx, my, a, b, c, op = (v[:, None] for v in payload[gid[:, k], :6].unbind(-1))
+        power = entry_power_plain(mx, my, a, b, c, px, py)
+        alpha = torch.clamp_max(op * torch.exp(power), alpha_max)
+        passes = live & ~(power > 0.0) & ~(alpha < alpha_min)
+        test = trans * (1.0 - alpha)
+        stop = passes & (test < t_min)
+        add = passes & ~stop
+        visited = torch.where(stop, k + 1, visited)
+        done |= stop
+        trans = torch.where(add, test, trans)
+        last = torch.where(add, k + 1, last)
+        added += add.sum()
+    return visited, last, int(added)
+
+
+def check_k3_walk(k3_args, out, last, label: str) -> tuple:
+    """K3's n_visit and last_contrib (``out``, ``last``: the timed instance's)
+    against composite_walk_plain, which walks every entry: equal at every
+    pixel, so K3's entry cull skipped no entry the walk stops at or adds.
+    The instance with ``stats`` must give the same two outputs, and count
+    as many contributing pairs as the walk adds. Returns (K3's tested,
+    contributing pairs)."""
+    from sdpgs_torch.ops.rasterize import composite_cuda
+
+    stats = torch.zeros(2, dtype=torch.int64, device=out.n_visit.device)
+    out_s, last_s = composite_cuda.composite_gather_fwd(*k3_args, stats=stats)
+    visit_p, last_p, added = composite_walk_plain(k3_args)
+    npix_all = last.numel()
+    bad = int(((out.n_visit != visit_p) | (last != last_p)).sum())
+    same_s = bool(torch.equal(out_s.n_visit, out.n_visit) and torch.equal(last_s, last))
+    tested, contrib = (int(v) for v in stats.tolist())
+    visited = int(out.n_visit.sum())
+    print(f"  K3 walk [{label}]: pixels whose n_visit or last_contrib differ from the plain "
+          f"sequential walk {bad} of {npix_all} (limit 0); stats instance equal {same_s}; "
+          f"(entry, pixel) pairs visited {visited}, tested {tested} "
+          f"({100.0 * tested / max(visited, 1):.1f}%), contributing {contrib} (the walk "
+          f"adds {added})")
+    require(bad == 0 and same_s, f"[{label}] K3's walk differs from the plain walk")
+    require(contrib == added, f"[{label}] K3 counts {contrib} contributing pairs, the plain "
+                              f"walk adds {added}")
+    require(0 < contrib <= tested <= visited, f"[{label}] K3's pair counts are inconsistent")
+    return tested, contrib
+
+
+def check_tile_sizes(main_check: dict) -> None:
+    """K2 and K3 at the tiles the main and tight configs do not reach (8
+    and 24: one block per tile, 8x4 patches, T = 3,024 at tile 8; 20:
+    row-major blocks), on the main scene's K1 output: K2 bit-identical to
+    its plain version, K3 within the colour gate and its walk, and its
+    count of contributing pairs, equal to the plain walk's."""
+    from sdpgs_torch.config import RasterizeConfig
+    from sdpgs_torch.ops.rasterize import binning, composite_cuda
+
+    prep, payload = main_prep(main_check), main_check["k3_args"][0]
+    with torch.no_grad():
+        for tile in EDGE_TILES:
+            cfg = RasterizeConfig(tile=tile)
+            tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, tile)
+            T, K = tiles_x * tiles_y, cfg.max_per_tile
+            label = f"tile {tile}"
+            k2 = k2_versus_plain((*binning.sort_rects(prep, WIDTH, HEIGHT, cfg), T, tiles_x, K,
+                                  cfg.max_tiles_per_gaussian), label)
+            k3_args = (payload, k2["table"].reshape(T, K), torch.clamp_max(k2["totals"], K),
+                       tiles_x, tiles_y, cfg, payload.shape[0] - 1)
+            k3_versus_plain(k3_args, label)
+            out, last = composite_cuda.composite_gather_fwd(*k3_args)
+            check_k3_walk(k3_args, out, last, label)
+
+
+def synthetic_rects(rng, P: int, n_valid: int, tiles_x: int, tiles_y: int, whole: bool, dev):
+    """K2's inputs without a scene: P packed rects of 1-6 tiles a side (or
+    the whole grid), empty past n_valid as sort_rects leaves the culled
+    ones, a random order and the device scalar n_valid."""
+    from sdpgs_torch.ops.rasterize.binning import pack_rect
+
+    xmin = rng.integers(0, tiles_x, P)
+    ymin = rng.integers(0, tiles_y, P)
+    xmax = np.minimum(xmin + rng.integers(1, 7, P), tiles_x)
+    ymax = np.minimum(ymin + rng.integers(1, 7, P), tiles_y)
+    if whole:
+        xmin, xmax, ymin, ymax = (np.full(P, v) for v in (0, tiles_x, 0, tiles_y))
+    xmax[n_valid:], ymax[n_valid:] = xmin[n_valid:], ymin[n_valid:]
+    rect = (torch.from_numpy(v.astype(np.int32)).to(dev) for v in (xmin, xmax, ymin, ymax))
+    order = torch.from_numpy(rng.permutation(P).astype(np.int32)).to(dev)
+    return pack_rect(*rect).contiguous(), order, torch.tensor(n_valid, dtype=torch.int32,
+                                                              device=dev)
+
+
+def check_binning_edges(dev, main_check: dict) -> None:
+    """K2 bit-identical to its plain version where the main scene does not
+    go: n_valid 0, 1 and not a multiple of 32 (P not one either), every
+    rect covering every tile (every tile overflows K), D = 1, and on the
+    main scene at the Trainer's ladder sizes, K 2,048 and D 32."""
+    from sdpgs_torch.config import RasterizeConfig
+    from sdpgs_torch.ops.rasterize import binning
+
+    rng = np.random.default_rng(6)
+    tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, 16)
+    T = tiles_x * tiles_y
+    with torch.no_grad():
+        # label: (P, n_valid, every tile, K, D)
+        for label, (P, n, whole, K, D) in {
+                "n_valid 0": (4096, 0, False, 256, 8),
+                "n_valid 1": (4096, 1, False, 256, 8),
+                "n_valid 3999, P 4000": (4000, 3999, False, 256, 8),
+                "every rect covers every tile": (4096, 3000, True, 256, 8),
+                "D 1": (4096, 4096, False, 256, 1)}.items():
+            k2 = k2_versus_plain((*synthetic_rects(rng, P, n, tiles_x, tiles_y, whole, dev), T,
+                                  tiles_x, K, D), label)
+            if whole:
+                require(bool((k2["totals"] == n).all()) and k2["overflow"] == T * (n - K),
+                        "not every tile overflowed K")
+            if D == 1:
+                require(k2["clipped"] > 0 and k2["holes"] > 0, "D 1 clipped nothing")
+        cfg = RasterizeConfig(max_per_tile=LADDER_K, max_tiles_per_gaussian=LADDER_D)
+        tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, cfg.tile)
+        k2_versus_plain((*binning.sort_rects(main_prep(main_check), WIDTH, HEIGHT, cfg),
+                         tiles_x * tiles_y, tiles_x, LADDER_K, LADDER_D),
+                        f"ladder K {LADDER_K}, D {LADDER_D}")
 
 
 def field_errors(got: torch.Tensor, ref: torch.Tensor, tol: float):
@@ -349,18 +555,19 @@ def field_errors(got: torch.Tensor, ref: torch.Tensor, tol: float):
     return rel, bad
 
 
-def k5_versus_plain(args, gen):
-    """K3 forward, then K5 and its plain version at seeded random
-    cotangents on the compositing inputs ``args``, and K5's pair counts
-    (the instance with ``stats``), whose contributing pairs must equal
-    contributing_pairs_plain's. Returns (K5's and the plain payload
-    gradient, K5's launch arguments, K5's contributing, clamped and tested
-    pairs)."""
+def k5_versus_plain(args, gen, label: str):
+    """K3 forward, its walk against the plain walk, then K5 and its plain
+    version at seeded random cotangents on the compositing inputs ``args``,
+    and K5's pair counts (the instance with ``stats``), whose contributing
+    pairs must equal those the plain walk adds (K3's). Returns (K5's
+    and the plain payload gradient, K5's launch arguments, K5's
+    contributing, clamped and tested pairs, K3's tested pairs)."""
     from sdpgs_torch.ops.rasterize import composite_cuda
 
     payload, table, counts, tiles_x, tiles_y, cfg, P = args
     dev = payload.device
     out, last = composite_cuda.composite_gather_fwd(*args)
+    k3_tested, k3_contrib = check_k3_walk(args, out, last, label)
     g_values = torch.randn(tuple(out.values.shape), generator=gen, device=dev)
     g_final_t = torch.randn(tuple(out.final_t.shape), generator=gen, device=dev)
     k5_args = (payload, table, out.final_t, last, g_values, g_final_t, tiles_x, tiles_y,
@@ -370,41 +577,10 @@ def k5_versus_plain(args, gen):
     composite_cuda.composite_gather_bwd(*k5_args, stats=stats)
     d_p = composite_cuda.composite_vjp_plain(*args, g_values, g_final_t,
                                              tiles_per_pass=PLAIN_TILES_PER_PASS)
-    plain = contributing_pairs_plain(k5_args)
     pairs = [int(v) for v in stats.tolist()]
-    require(pairs[0] == plain, f"K5 counts {pairs[0]} contributing pairs, the plain count "
-                               f"{plain}: its cull skipped contributing pairs")
-    return d_k, d_p, k5_args, pairs
-
-
-def contributing_pairs_plain(k5_args, chunk: int = 32) -> int:
-    """The contributing (entry, pixel) pairs of K5's inputs, counted in
-    plain PyTorch: the entries of each tile's table before the pixel's last
-    contributor (K3's last_contrib) at which composite.py:76-83's test
-    passes (not power > 0, alpha >= alpha_min), with power rounded as
-    composite_math.cuh:entry_alpha rounds it (each fma's product exact in
-    float64, one rounding to f32), so the count is K3's contributor set."""
-    from sdpgs_torch.ops.rasterize.composite import tile_pixel_coords
-
-    payload, table, _, last, _, _, tiles_x, tiles_y, cfg, P = k5_args
-    dev = payload.device
-    f32, f64 = torch.float32, torch.float64
-    alpha_min = torch.tensor(cfg.alpha_min, dtype=f32, device=dev)
-    alpha_max = torch.tensor(cfg.alpha_max, dtype=f32, device=dev)
-    px, py = (c[:, None, :] for c in tile_pixel_coords(tiles_x, tiles_y, cfg.tile, device=dev))
-    gid = torch.where((table >= 0) & (table <= P), table, P).long()
-    total = 0
-    for k0 in range(0, int(last.max()), chunk):
-        mx, my, a, b, c, op = payload[gid[:, k0:k0 + chunk], :6].unbind(-1)
-        mx, my, a, b, c, op = (v[:, :, None] for v in (mx, my, a, b, c, op))
-        dx, dy = mx - px, my - py
-        q = ((a * dx).to(f64) * dx.to(f64) + ((c * dy) * dy).to(f64)).to(f32)
-        power = -0.5 * q - (b * dx) * dy          # -0.5 q is exact: one rounding, as the fma
-        alpha = torch.clamp_max(op * torch.exp(power), alpha_max)
-        passes = ~(power > 0.0) & ~(alpha < alpha_min)
-        k = torch.arange(k0, k0 + passes.shape[1], device=dev)
-        total += int((passes & (k[None, :, None] < last[:, None, :])).sum())
-    return total
+    require(pairs[0] == k3_contrib, f"K5 counts {pairs[0]} contributing pairs, the plain walk "
+                                    f"{k3_contrib}: its cull skipped contributing pairs")
+    return d_k, d_p, k5_args, pairs, k3_tested
 
 
 def k5_errors(d_k: torch.Tensor, d_p: torch.Tensor):
@@ -430,15 +606,15 @@ def check_poisoned_conic(k3_args, cfg) -> None:
     pay[hit, 3] = 0.0
     pay[hit, 4] = -500.0
     with torch.no_grad():
-        d_k, d_p, _, (contrib, _, _) = k5_versus_plain(
-            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen)
+        d_k, d_p, _, (contrib, _, _), _ = k5_versus_plain(
+            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen, "poisoned conics")
     _, rows_bad, rows_live, err = k5_errors(d_k, d_p)
     finite = bool(torch.isfinite(d_k).all())
     hit_zero = not bool(d_k[hit].any())
     print(f"  K5 poisoned conics ({hit.numel()} rows at a = c = -500): finite {finite}, "
           f"poisoned rows all zero {hit_zero}, rows beyond {K5_TOL:g} x column max "
           f"{rows_bad} of {rows_live}, max |diff| {err:.3e}; contributing pairs {contrib} "
-          f"(= the plain count)")
+          f"(= the plain walk's)")
     require(finite and hit_zero and rows_bad == 0,
             "K5 on poisoned conics is not finite or disagrees")
 
@@ -458,13 +634,13 @@ def check_clamped_alpha(k3_args, cfg) -> None:
     pay[hit, 2:5] *= 0.01
     pay[hit, 5] = 0.999
     with torch.no_grad():
-        d_k, d_p, _, (contrib, clamped, _) = k5_versus_plain(
-            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen)
+        d_k, d_p, _, (contrib, clamped, _), _ = k5_versus_plain(
+            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen, "clamped alpha")
     rel, rows_bad, rows_live, err = k5_errors(d_k, d_p)
     print(f"  K5 clamped alpha ({hit.numel()} rows at opacity 0.999): contributing pairs "
           f"{contrib}, clamped at {cfg.alpha_max:g} {clamped}; rows beyond {K5_TOL:g} x "
           f"column max {rows_bad} of {rows_live}, max |diff| / column max "
-          f"{float(rel.max()):.1e}, max |diff| {err:.3e}; contributing pairs = the plain count")
+          f"{float(rel.max()):.1e}, max |diff| {err:.3e}; contributing pairs = the plain walk's")
     require(clamped > 0, "the clamp phase reached no clamped pair")
     require(bool(torch.isfinite(d_k).all()) and rows_bad == 0,
             "K5 disagrees where alpha is clamped")
@@ -501,19 +677,20 @@ def check_backward_kernels(g, label: str, k1_args, k3_args) -> dict:
                 f"[{label}] K4 disagrees")
 
         # -- K5 vs plain: the payload gradient at random cotangents --------
-        d_k, d_p, k5_args, (contrib, clamped, tested) = k5_versus_plain(k3_args, gen)
+        d_k, d_p, k5_args, (contrib, clamped, tested), k3_tested = k5_versus_plain(
+            k3_args, gen, label)
         rel5, rows_bad, rows_live, k5_err = k5_errors(d_k, d_p)
         walked = int(k5_args[3].sum())   # up to each pixel's last contributor
         print(f"  K5 composite bwd: payload rows beyond {K5_TOL:g} x column max {rows_bad} of "
               f"{rows_live} with a gradient (limit 0), max |diff| / column max "
               f"{[f'{v:.1e}' for v in rel5.tolist()]}, max |diff| {k5_err:.3e}; "
               f"(entry, pixel) pairs up to each pixel's last contributor {walked}, tested "
-              f"{tested}, contributing {contrib} (= the plain count; clamped {clamped})")
+              f"{tested}, contributing {contrib} (= the plain walk's; clamped {clamped})")
         require(bool(torch.isfinite(d_k).all()) and rows_bad == 0, f"[{label}] K5 disagrees")
         require(0 < contrib <= tested <= walked, f"[{label}] K5's pair counts are inconsistent")
     return dict(k4_args=(*k1_args[:3], ct, *k1_args[3:]), k4_err=k4_err,
                 k5_args=k5_args, k5_plain_args=(*k3_args, *k5_args[4:6]),
-                k5_err=k5_err, contrib=contrib)
+                k5_err=k5_err, contrib=contrib, k3_tested=k3_tested)
 
 
 def perturb(arrays: dict, rng) -> dict:
@@ -1492,6 +1669,8 @@ def drive(dev: torch.device, work: Path) -> int:
                           "tight config")
     require(tight["overflow"] > 0 and tight["clipped"] > 0,
             "the tight config did not reach the K and D caps")
+    check_tile_sizes(main_check)
+    check_binning_edges(dev, main_check)
 
     # -- 7. the slice end to end: render_set over 8 views -----------------
     views = [
@@ -1609,12 +1788,15 @@ def drive(dev: torch.device, work: Path) -> int:
         k8_lib = cuda_ms(lambda: probe_args[0] + probe_args[1] + probe_args[2][:, 0])
     nsh = 3 * (SH_DEGREE + 1) ** 2
     npix = cfg.tile ** 2
+    # K2 reads n_valid rects and ids; K3 and K5 the listed entries and the
+    # payload rows they reference; K5 writes the whole payload gradient
     payload_bytes = main_check["payload_numel"] * 4
+    read_bytes = main_check["rows_read"] * main_check["row_bytes"] + main_check["entries"] * 4
     k1_bytes = (preprocess_cuda.NGEO + nsh + preprocess_cuda.NOUT) * 4 * CAPACITY
-    k2_bytes = (2 * CAPACITY + 1 + T * K + T) * 4
-    k3_bytes = payload_bytes + (T * K + T + T * npix * (composite_cuda.NCH + 1)) * 4
+    k2_bytes = (2 * main_check["n_valid"] + 1 + T * K + T) * 4
+    k3_bytes = read_bytes + (T + T * npix * (composite_cuda.NCH + 1)) * 4
     k4_bytes = (K4_BYTES_ROWS + 2 * nsh) * 4 * CAPACITY
-    k5_bytes = 2 * payload_bytes + (T * K + T * npix * (composite_cuda.NCH + 3)) * 4
+    k5_bytes = read_bytes + payload_bytes + T * npix * (composite_cuda.NCH + 3) * 4
     k6_bytes = (pc.shape[0] + depths.shape[0]) * HEIGHT * WIDTH * 4 + pc.numel() * 4
     k7_bytes = SORT_BYTES * sort_args[0].numel()
     k8_bytes = PROBE_BYTES * probe_args[0].numel()
@@ -1622,9 +1804,11 @@ def drive(dev: torch.device, work: Path) -> int:
     def bound(nbytes, ops=0):
         return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
 
+    # K3's and K5's operations: the function's own work, the contributing pairs
+    k3_unculled = bound(k3_bytes, pairs * ALPHA_OPS + contrib * BLEND_OPS)
     bounds = {
         "k1": bound(k1_bytes), "k2": bound(k2_bytes),
-        "k3": bound(k3_bytes, pairs * ALPHA_OPS + contrib * BLEND_OPS),
+        "k3": bound(k3_bytes, contrib * (ALPHA_OPS + BLEND_OPS)),
         "k4": bound(k4_bytes),
         "k5": bound(k5_bytes, contrib * (ALPHA_OPS + GRAD_OPS)),
         "k6": bound(k6_bytes, warp_check["rows"] * WARP_OPS),
@@ -1664,6 +1848,12 @@ def drive(dev: torch.device, work: Path) -> int:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms{lib}), bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, {r['launches']} launches "
               f"{row[5]}")
+    print(f"  composite_fwd: the unculled walk's operations, {pairs} pairs visited x "
+          f"{ALPHA_OPS} + {contrib} contributing x {BLEND_OPS}, would take "
+          f"{k3_unculled[0] * 1e3:.2f} us; K3 tested {main_check['k3_tested']} of the {pairs}")
+    print(f"  bytes counted: K2 {k2_bytes} (n_valid {main_check['n_valid']}), K3 {k3_bytes}, "
+          f"K5 {k5_bytes} ({main_check['entries']} table entries listed, "
+          f"{main_check['rows_read']} payload rows they reference)")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

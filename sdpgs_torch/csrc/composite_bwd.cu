@@ -33,8 +33,9 @@
 // The block walks its table row back to front from the largest
 // last_contrib of its own pixels, each warp only from the largest of its
 // own, in shared-memory batches of 256 payload rows. Per batch:
-// - each entry gets a pixel box (entry_box, below) outside which
-//   entry_alpha is false; a warp takes 32 entries at a time, each lane
+// - each entry gets a pixel box (composite_math.cuh:entry_box, where its
+//   proof is; K3 culls with the same box) outside which entry_alpha is
+//   false; a warp takes 32 entries at a time, each lane
 //   testing one entry's box against the warp's patch, and runs the pixel
 //   code only for the entries whose box meets it (most entries of a tile
 //   list cover a few patches of the tile: on the LLFF inputs 4.3% of the
@@ -52,34 +53,6 @@
 // Built for sm_90a: 71 and 73 registers (the two instances), no spill,
 // 31.7 KB of shared memory (nvcc -Xptxas -v).
 //
-// Why entry_box is exact (no pixel that entry_alpha passes is skipped).
-// With u = 2^-24 and d = (mx - px, my - py) exactly, entry_alpha's power,
-// -0.5 (a dx^2 + c dy^2) - b dx dy = -Q(d) / 2, is formed with at most six
-// roundings on each term (dx and dy themselves, products, fma, sum), so
-// the computed power p' differs from the exact p by less than
-// 7u (|a| dx^2 / 2 + |c| dy^2 / 2 + |b dx dy|), provided nothing
-// overflows: that holds for |mean|, pixel coordinates <= 2^20 and
-// |a|, |b|, |c| <= 2^40 (terms below 2^82). A pair passes only if
-// alpha >= alpha_min >= 1e-20, and alpha <= op e^p' (1 + 3e-7) (expf to 2
-// ulp, one rounded product; e^p' is not subnormal there, as op <= 2^20;
-// a NaN cannot form with finite inputs inside those bounds), so
-// p' >= -tau - 3e-7 with tau = ln(op / alpha_min). Using
-// 2 |dx dy| <= dx^2 + dy^2, passing implies Q'(d) <= 2 tau + 6e-7 for
-// Q' = a' dx^2 + 2 b dx dy + c' dy^2, a' = a - kRel (|a| + |b|),
-// c' = c - kRel (|c| + |b|), kRel = 1e-5 >= 7u. Where Q' is positive
-// definite, Q'(d) <= r bounds |dx| <= sqrt(r c' / det') and
-// |dy| <= sqrt(r a' / det'), det' = a' c' - b^2. entry_box computes these
-// in double (b^2 exact, det' to 1e-7 relative as det' > 1e-9 a' c'), with
-// r = 2 (max(tau, 0) + kSlack) + kSlack, widens them by 1e-6 relative and
-// absolute, and rounds the box outward to float. Where op <= 0 the
-// product op e^p' <= 0 < alpha_min: the box is empty. Any input outside
-// the bounds, NaN or infinite, a Q' that is not positive definite, or
-// alpha_min < 1e-20 gives the whole plane (no skip). On the card,
-// chip_smoke.py holds the contributing-pair count to a plain PyTorch count
-// of the pairs entry_alpha's test passes up to each pixel's last
-// contributor; tests/test_torch_composite_cull.py mirrors the box on the
-// CPU and checks its constants against this file.
-//
 // Float atomics make the order of each row's sum, and so its last bits,
 // vary from run to run: the gradient is not bitwise deterministic.
 
@@ -88,56 +61,13 @@
 namespace {
 
 constexpr int kBatch = 256;     // payload rows per shared-memory batch
-constexpr int kSquare = 16;     // a block's square of pixels in a tile that 16 divides
-constexpr int kPatchW = 8;      // one warp's pixels: kPatchW x kPatchH
-constexpr int kPatchH = 4;
-constexpr int kMaxThreads = 24 * 24;  // the largest block: a 24x24 tile
 constexpr int kRed = 16;        // the 13 payload gradients padded for the reduce-scatter
-constexpr unsigned kFullMask = 0xffffffffu;
-static_assert(kPatchW * kPatchH == 32, "a warp's patch");
-// entry_box's bounds on its inputs (no float overflow in entry_alpha within
-// them) and its margins (see the note at the top).
-constexpr float kMaxCoord = 1048576.0f;     // 2^20: |mean|, and pixel coordinates
-constexpr float kMaxConic = 1099511627776.0f;  // 2^40: |a|, |b|, |c|
-constexpr double kRel = 1e-5;               // >= 7u, the rounding of power
-constexpr double kSlack = 1e-5;             // >= 3e-7, exp and op * e^power
-constexpr double kMinDet = 1e-9;            // det' / (a' c'): det' known to 1e-7
-constexpr float kMinAlpha = 1e-20f;         // alpha_min: e^power not subnormal
-
-// An entry's pixel box: every pixel centre at which entry_alpha can return
-// true lies in [x0, x1] x [y0, y1]. The whole plane where no bound is
-// proven, an empty box where no pixel can pass.
-struct Box {
-  float x0, x1, y0, y1;
-};
-
-__device__ Box entry_box(float mx, float my, float a, float b, float c, float op,
-                         float alpha_min) {
-  const Box all{-INFINITY, INFINITY, -INFINITY, INFINITY};
-  if (!(fabsf(mx) <= kMaxCoord && fabsf(my) <= kMaxCoord && fabsf(a) <= kMaxConic &&
-        fabsf(b) <= kMaxConic && fabsf(c) <= kMaxConic && fabsf(op) <= kMaxCoord)) {
-    return all;  // also every NaN
-  }
-  if (op <= 0.0f) return Box{INFINITY, -INFINITY, INFINITY, -INFINITY};
-  const double ad = a, bd = b, cd = c;
-  const double ap = ad - kRel * (fabs(ad) + fabs(bd));
-  const double cp = cd - kRel * (fabs(cd) + fabs(bd));
-  const double det = ap * cp - bd * bd;
-  if (!(ap > 0.0 && cp > 0.0 && det > kMinDet * ap * cp)) return all;
-  const double tau = fmax(log(static_cast<double>(op) / alpha_min), 0.0) + kSlack;
-  const double r = 2.0 * tau + kSlack;
-  const double hx = sqrt(r * cp / det) * (1.0 + 1e-6) + 1e-6;
-  const double hy = sqrt(r * ap / det) * (1.0 + 1e-6) + 1e-6;
-  return Box{__double2float_rd(mx - hx), __double2float_ru(mx + hx),
-             __double2float_rd(my - hy), __double2float_ru(my + hy)};
-}
-
-template <typename V>
-__device__ __forceinline__ V warp_sum(V v) {  // lane 0 gets the warp's sum
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullMask, v, off);
-  return v;
-}
+using sdpgs_comp::Box;
+using sdpgs_comp::kFullMask;
+using sdpgs_comp::kMaxThreads;
+using sdpgs_comp::kPatchH;
+using sdpgs_comp::kPatchW;
+using sdpgs_comp::warp_sum;
 
 // One halving step of the reduce-scatter: lanes with `bit` set keep the
 // upper half of v[0, 2h), the others the lower, each adding its partner's.
@@ -188,9 +118,8 @@ composite_bwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
   const int sq = blockIdx.x - t * squares_x * squares_x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int patches_x = square / kPatchW;
-  const int lx = (sq % squares_x) * square + (warp % patches_x) * kPatchW + lane % kPatchW;
-  const int ly = (sq / squares_x) * square + (warp / patches_x) * kPatchH + lane / kPatchW;
+  int lx, ly;
+  sdpgs_comp::patch_pixel(sq, warp, lane, tile, square, lx, ly);
   const float px = (float)((t % tiles_x) * tile + lx);
   const float py = (float)((t / tiles_x) * tile + ly);
   // the warp's patch: pixel centres [px0, px0 + 7] x [py0, py0 + 3]
@@ -231,8 +160,8 @@ composite_bwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
     }
     __syncthreads();
     for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      s_box[e] = cull ? entry_box(s_pay[0][e], s_pay[1][e], s_pay[2][e], s_pay[3][e],
-                                  s_pay[4][e], s_pay[5][e], alpha_min)
+      s_box[e] = cull ? sdpgs_comp::entry_box(s_pay[0][e], s_pay[1][e], s_pay[2][e],
+                                              s_pay[3][e], s_pay[4][e], s_pay[5][e], alpha_min)
                       : Box{-INFINITY, INFINITY, -INFINITY, INFINITY};
     }
     __syncthreads();
@@ -242,9 +171,8 @@ composite_bwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
     for (int e0 = min(n, warp_top - b0) - 1; e0 >= 0; e0 -= 32) {
       bool touches = false;
       if (e0 - lane >= 0) {
-        const Box bx = s_box[e0 - lane];
-        touches = px0 <= bx.x1 && px0 + (kPatchW - 1) >= bx.x0 && py0 <= bx.y1 &&
-                  py0 + (kPatchH - 1) >= bx.y0;
+        touches = sdpgs_comp::box_meets(s_box[e0 - lane], px0, px0 + (kPatchW - 1), py0,
+                                        py0 + (kPatchH - 1));
       }
       unsigned todo = __ballot_sync(kFullMask, touches);
       while (todo != 0) {
@@ -322,12 +250,9 @@ SDPGS_API int sdpgs_composite_bwd(const float* payload, const int* table,
   }
   if (num_tiles == 0) return 0;
   // tile^2 a multiple of 32 makes the tile a multiple of 8: 8, 16, 24 or 32
-  const int square = tile % kSquare == 0 ? kSquare : tile;
+  const int square = sdpgs_comp::square_side(tile);
   const int squares = (tile / square) * (tile / square);
-  const int tiles_y = (num_tiles + tiles_x - 1) / tiles_x;
-  // entry_box holds for pixel coordinates within kMaxCoord and alpha_min >= kMinAlpha
-  const bool cull = alpha_min >= kMinAlpha && static_cast<double>(tiles_x) * tile <= kMaxCoord &&
-                    static_cast<double>(tiles_y) * tile <= kMaxCoord;
+  const bool cull = sdpgs_comp::cull_holds(tiles_x, num_tiles, tile, alpha_min);
   auto kernel = stats != nullptr ? composite_bwd_kernel<true> : composite_bwd_kernel<false>;
   kernel<<<num_tiles * squares, square * square, 0, static_cast<cudaStream_t>(stream)>>>(
       payload, table, final_t, last_contrib, g_values, g_final_t, d_payload, stats, P,

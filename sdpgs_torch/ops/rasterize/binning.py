@@ -10,7 +10,9 @@ writes its Gaussian id to slot ``tile*K + rank`` of a [T, K] table
 The table builder is kernel K2 (``csrc/binning.cu``) on CUDA tensors and
 :func:`build_table_plain` on CPU tensors; the plain version mirrors the
 JAX scan path (binning.py:259-303) and ``_scatter_table`` (:317-344), and
-K2 stands in for all three TPU rank-kernel layouts. Capacity semantics:
+K2 stands in for all three TPU rank-kernel layouts. K2 builds the table
+from coverage words (one bit per sorted Gaussian and tile, 32 Gaussians to
+a word) whose popcount prefix gives each entry its rank. Capacity semantics:
 per-tile K overflow and per-Gaussian D clipping are counted, never silent.
 """
 
@@ -125,13 +127,17 @@ def build_table(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
     _kernels.check(packed_s, "packed_s", torch.int32, (P,))
     _kernels.check(order, "order", torch.int32, (P,))
     _kernels.check(n_valid, "n_valid", torch.int32, ())
-    table = torch.full((num_tiles * K,), P, dtype=torch.int32, device=packed_s.device)
-    totals = torch.empty((num_tiles,), dtype=torch.int32, device=packed_s.device)
+    dev = packed_s.device
+    # the kernel writes every slot of the table, sentinels included
+    table = torch.empty((num_tiles * K,), dtype=torch.int32, device=dev)
+    totals = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
+    cover = torch.empty(num_tiles * _kernels.lib().sdpgs_bin_table_scratch_words(P),
+                        dtype=torch.int32, device=dev)
     _kernels.launch(
         "binning", "sdpgs_bin_table",
         _kernels.ptr(packed_s), _kernels.ptr(order), _kernels.ptr(n_valid),
-        _kernels.ptr(table), _kernels.ptr(totals), num_tiles, tiles_x, K, D,
-        _kernels.stream(packed_s.device),
+        _kernels.ptr(table), _kernels.ptr(totals), _kernels.ptr(cover), P, num_tiles, tiles_x,
+        K, D, _kernels.stream(dev),
     )
     return table, totals
 

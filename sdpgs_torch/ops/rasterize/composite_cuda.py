@@ -81,10 +81,12 @@ def _check_tiles(payload, table, counts, tiles_x: int, tiles_y: int, cfg, num_ga
 
 
 def composite_gather_fwd(payload, table, counts, tiles_x: int, tiles_y: int,
-                         cfg: RasterizeConfig, num_gaussians: int):
+                         cfg: RasterizeConfig, num_gaussians: int, stats=None):
     """Launch K3 on CUDA tensors autograd does not track. Returns
     (TileOutputs with n_visit, last_contrib [T, tile^2] int32: one past the
-    last entry each pixel added, where K5 starts)."""
+    last entry each pixel added, where K5 starts). ``stats``, a zeroed
+    int64 [2] tensor, receives the (entry, pixel) pairs K3 tested and those
+    that contributed, when given."""
     _check_tiles(payload, table, counts, tiles_x, tiles_y, cfg, num_gaussians)
     T, K = table.shape
     npix = cfg.tile * cfg.tile
@@ -93,12 +95,17 @@ def composite_gather_fwd(payload, table, counts, tiles_x: int, tiles_y: int,
     final_t = torch.empty((T, npix), dtype=torch.float32, device=dev)
     n_visit = torch.empty((T, npix), dtype=torch.int32, device=dev)
     last = torch.empty((T, npix), dtype=torch.int32, device=dev)
+    outs = [_kernels.ptr(t) for t in (values, final_t, n_visit, last)]
+    if stats is None:
+        fn = "sdpgs_composite_fwd"
+    else:
+        _kernels.check(stats, "stats", torch.int64, (2,))
+        fn = "sdpgs_composite_fwd_stats"
+        outs.append(_kernels.ptr(stats))
     _kernels.launch(
-        "composite", "sdpgs_composite_fwd",
-        _kernels.ptr(payload), _kernels.ptr(table), _kernels.ptr(counts),
-        _kernels.ptr(values), _kernels.ptr(final_t), _kernels.ptr(n_visit), _kernels.ptr(last),
-        num_gaussians, T, tiles_x, cfg.tile, K, float(cfg.alpha_min), float(cfg.alpha_max),
-        float(cfg.transmittance_min), _kernels.stream(dev),
+        "composite", fn, _kernels.ptr(payload), _kernels.ptr(table), _kernels.ptr(counts),
+        *outs, num_gaussians, T, tiles_x, cfg.tile, K, float(cfg.alpha_min),
+        float(cfg.alpha_max), float(cfg.transmittance_min), _kernels.stream(dev),
     )
     return TileOutputs(values=values, final_t=final_t, n_visit=n_visit), last
 

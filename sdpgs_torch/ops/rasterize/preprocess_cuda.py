@@ -330,8 +330,12 @@ def preprocess_color(xyz, scale, quat, features, alive, cam, sh_degree: int,
     """Fused preprocess + SH colour; returns (Preprocessed, color [P, 3]),
     differentiable with respect to xyz, scale, quat and features."""
     geoT, shT = pack_rows(xyz, scale, quat, features, alive, sh_degree)
-    out = preprocess_rows(geoT, shT, _cam_vec(cam), sh_degree, int(cam.width),
-                          int(cam.height), near, low_pass)
+    return split_rows(preprocess_rows(geoT, shT, _cam_vec(cam), sh_degree, int(cam.width),
+                                      int(cam.height), near, low_pass))
+
+
+def split_rows(out) -> tuple[Preprocessed, torch.Tensor]:
+    """K1's [11, P] rows as (Preprocessed, color [P, 3])."""
     prep = Preprocessed(
         valid=out[0] > 0.0,
         mean2d=torch.stack([out[1], out[2]], dim=-1),

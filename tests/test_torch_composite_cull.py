@@ -1,7 +1,8 @@
-"""K5's entry cull (csrc/composite_bwd.cu:entry_box) on the CPU.
+"""The entry cull K3 and K5 share (csrc/composite_math.cuh:entry_box) on
+the CPU.
 
-K5 skips an entry for a warp's 8x4 pixel patch where the entry's pixel
-box misses the patch; the box must hold every pixel at which K3's and K5's
+K3 and K5 skip an entry for a warp's pixel patch where the entry's pixel
+box misses the patch; the box must hold every pixel at which their shared
 per-pixel test (csrc/composite_math.cuh:entry_alpha) passes. Here both are
 mirrored in numpy: entry_alpha in float32, step by step in its rounding
 order (fma emulated through float64), and entry_box in float64 as the
@@ -22,10 +23,10 @@ from sdpgs_torch.config import RasterizeConfig
 
 CFG = RasterizeConfig()
 ALPHA_MIN, ALPHA_MAX = np.float32(CFG.alpha_min), np.float32(CFG.alpha_max)
-# entry_box's constants (composite_bwd.cu; test_constants_match_the_kernel)
+# entry_box's constants (composite_math.cuh; test_constants_match_the_kernel)
 MAX_COORD, MAX_CONIC = 2.0 ** 20, 2.0 ** 40
 REL, SLACK, MIN_DET, MIN_ALPHA = 1e-5, 1e-5, 1e-9, 1e-20
-KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "sdpgs_torch" / "csrc" / "composite_bwd.cu"
+KERNEL_SOURCE = Path(__file__).resolve().parents[1] / "sdpgs_torch" / "csrc" / "composite_math.cuh"
 GRID = 96   # pixel centres 0..95 in x and y
 f32 = np.float32
 
@@ -49,7 +50,7 @@ def entry_alpha_passes(mx, my, a, b, c, op, px, py):
 
 
 def entry_box(mx, my, a, b, c, op):
-    """composite_bwd.cu:entry_box for one entry: (x0, x1, y0, y1)."""
+    """composite_math.cuh:entry_box for one entry: (x0, x1, y0, y1)."""
     everywhere = (-np.inf, np.inf, -np.inf, np.inf)
     vals = (abs(mx), abs(my), abs(a), abs(b), abs(c), abs(op))
     limits = (MAX_COORD, MAX_COORD, MAX_CONIC, MAX_CONIC, MAX_CONIC, MAX_COORD)
@@ -144,7 +145,7 @@ def test_constants_match_the_kernel():
                                           "kMinDet", "kMinAlpha")} == {
         "kMaxCoord": MAX_COORD, "kMaxConic": MAX_CONIC, "kRel": REL, "kSlack": SLACK,
         "kMinDet": MIN_DET, "kMinAlpha": MIN_ALPHA}
-    body = src[src.index("__device__ Box entry_box("):]
+    body = src[src.index("Box entry_box("):]
     body = body[:body.index("\n}\n")]
     for line in ("fabsf(op) <= kMaxCoord", "if (op <= 0.0f) return",
                  "ap = ad - kRel * (fabs(ad) + fabs(bd))",
