@@ -34,7 +34,13 @@ points, clouds, images and weights made from a seed:
   perturbed copy of a ground-truth cloud, which must lower L1 and launch
   each of K1-K5 once per step and no plain version;
 - pseudo-view training: K6 (the reprojection z-buffer) bit-identical to its
-  plain version on 64 pseudo cameras x 3 train views and on edge pairs;
+  plain version on 64 pseudo cameras x 3 train views (the cluster path),
+  the in-step 3 pairs, edge pairs, pairs at 377x503, 1008x756 and
+  4032x3024 (the general path), a pair whose rows all land in one block's
+  band and one whose rows collapse onto 15 pixels; K6's other designs
+  (cluster sizes, the general path over all pairs and by chunks) timed as
+  probes at the prefetch's pair count at 504x378 and at 1008x756, each
+  bit-identical too;
   the DPT-Hybrid depth net (random weights, seed 0) on the card against
   the CPU, and in bf16 against f32; one pseudo step on the card against
   the CPU at a reduced size; then, from iteration 4500, 30 pseudo steps
@@ -57,7 +63,9 @@ points, clouds, images and weights made from a seed:
   with tight K and D must double both at its next log point.
 
 It then times each kernel, its plain version, a render, a train step, a
-pseudo step and the Trainer's iterations and events, and profiles them.
+pseudo step (and the prefetch's K6, fusion and rest) and the Trainer's
+iterations and events, and profiles them; K1 and K4 are timed with the
+camera vector on the host.
 Every phase raises on failure, so the script exits non-zero and prints no
 ``ok`` line; it refuses to run without a CUDA device. The card's name and
 power limit are printed first; the last two lines are the ``kernels`` JSON
@@ -112,6 +120,12 @@ WARP_OPS = 28                 # K6 per source row: 3 rows of 3 mul + 3 add, 2 di
 PSEUDO_START = 4500           # the pseudo phases start here: every pseudo term live
 PSEUDO_STEPS = 30             # full-width pseudo steps, cycling the train cameras
 BASELINE_FAR = 1.5            # edge pair: |du| ~ fx b / z > 128, outside the TPU window
+# K6 at other widths x heights, and the path zbuf_plan must give each
+K6_SIZES = (((377, 503), "cluster"), ((1008, 756), "cluster"), ((4032, 3024), "general"))
+K6_CHUNK = 33                 # K6 probe: pairs a chunk (25 MB of z-buffers, inside L2)
+K6_PROBE_CLUSTERS = (4, 7, 8, 16)   # K6 probe: blocks a cluster (1, 2, 2 and 4 an SM at LLFF)
+K6_CHUNK_2X = 9               # K6 probe at 1008x756: pairs a chunk (27 MB, inside L2)
+K6_PROBE_CLUSTERS_2X = (8, 16)  # K6 probe at 1008x756 (8 does not fit a block: printed)
 DPT_FWD_TOL = 1e-3            # depth net, card vs CPU in f32: of the output's range
 # Its input gradient at a random cotangent is ill-conditioned in f32: the
 # card's, the CPU's (with or without oneDNN) each differ from a float64 run
@@ -870,61 +884,230 @@ def pseudo_geometry(data: dict, n: int, seed: int):
 
 def k6_versus_plain(depths, pc, label: str) -> dict:
     """K6 and its plain version on the same [proj | c] rows: bit-identical
-    z-buffers; prints the valid rows, the filled pixels, the rows that lost
-    the min and the largest displacement."""
+    z-buffers, through the path zbuf_plan gives the shape; prints the path,
+    the cluster, the share of valid rows whose atomic stays in the block
+    that projects them, the filled pixels, the rows that lost the min and
+    the largest displacement."""
+    from sdpgs_torch import _kernels
     from sdpgs_torch.ops import warp
 
     V, H, W = depths.shape
+    plan = warp.zbuf_plan(H, W)
+    paths = dict(_kernels.WARP_PATH_LAUNCHES)
     out_k = warp.warp_zbuffer_rows(depths, pc)
+    took = {k: n - paths[k] for k, n in _kernels.WARP_PATH_LAUNCHES.items()}
     out_p = warp.warp_zbuffer_rows_plain(depths, pc)
     torch.cuda.synchronize()
-    same = bool(torch.equal(out_k, out_p))
+    same = torch.equal(out_k.view(torch.int32), out_p.view(torch.int32))
     err = float((out_k - out_p).abs().max())
     u, v, z, valid = warp.project_rows(depths, pc)
     n = pc.shape[0]
-    xs = torch.arange(H * W, device=depths.device) % W
+    pix = torch.arange(H * W, device=depths.device)
+    xs, ys = pix % W, pix // W
     n_valid = int(valid.sum())
     filled = int((out_p > 0).sum())
     max_du = int(torch.where(valid, (u - xs).abs(), 0).max()) if n_valid else 0
-    print(f"  K6 [{label}]: {n} pairs at {W}x{H}, rows {n * H * W}, valid {n_valid}, filled "
-          f"pixels {filled}, rows that lost the min {n_valid - filled}, holes in the source "
-          f"{int((depths == 0).sum())}, max |du| {max_du} px; bit-identical {same}")
+    if plan.path == "cluster":   # destination row in the band of the source row
+        home = torch.div(torch.where(valid, v, 0).long(), plan.rows, rounding_mode="floor")
+        local = int((valid & (home == torch.div(ys, plan.rows, rounding_mode="floor"))).sum())
+        where = (f"cluster path, {plan.cluster} blocks of {plan.rows} rows "
+                 f"({plan.smem_bytes} B shared), atomics local to their block "
+                 f"{local / max(n_valid, 1):.4f}")
+    else:
+        where = "general path (three kernels over device memory)"
+    print(f"  K6 [{label}]: {n} pairs at {W}x{H}, {where}; rows {n * H * W}, valid {n_valid}, "
+          f"filled pixels {filled}, rows that lost the min {n_valid - filled}, holes in the "
+          f"source {int((depths == 0).sum())}, max |du| {max_du} px; bit-identical {same}")
+    require(took == {k: int(k == plan.path) for k in took},
+            f"K6 [{label}] did not take the {plan.path} path once: {took}")
     require(same, f"K6 disagrees with its plain version [{label}]")
     require(n_valid > 0 and filled > 0, f"K6 [{label}] scattered nothing")
-    return dict(err=err, max_du=max_du)
+    return dict(err=err, max_du=max_du, filled=filled, path=plan.path, out=out_p)
+
+
+def rescaled(depths, K, width: int, height: int):
+    """The depths resized (nearest) to width x height, and K scaled with them."""
+    V, H, W = depths.shape
+    d = torch.nn.functional.interpolate(depths[None], size=(height, width), mode="nearest")[0]
+    scale = torch.tensor([[width / W, 0.0, 0.0], [0.0, height / H, 0.0], [0.0, 0.0, 1.0]],
+                         device=K.device)
+    return d.contiguous(), scale @ K
+
+
+def single_pair(dev, proj, c=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """One pair's [proj | c] rows, written out."""
+    rows = torch.cat([torch.tensor(proj, dtype=torch.float32),
+                      torch.tensor(c, dtype=torch.float32)[:, None]], dim=1)
+    return rows.reshape(1, 12).to(dev)
 
 
 def check_warp(data: dict, dev) -> dict:
-    """K6 against its plain version on the card at the prefetch's shape
-    (REPROJ_PREFETCH pseudo cameras x 3 train views), then on a pair whose
-    baseline puts displacements past the TPU kernel's 128-pixel window, and
-    on one with source holes and rows out of frame."""
+    """K6 against its plain version on the card, bit for bit: the prefetch
+    (REPROJ_PREFETCH pseudo cameras x 3 train views) and the in-step shape
+    (3 pairs) on the cluster path; a pair whose baseline puts
+    displacements past the TPU kernel's 128-pixel window; one with source
+    holes and rows out of frame; pairs at 377x503 (4-byte write-out),
+    1008x756 (a non-portable cluster of 16) and 4032x3024 (past every cluster:
+    the general path); a pair whose rows all land in one block's band, and
+    one whose rows collapse onto 15 pixels on a band edge."""
     from sdpgs_torch.ops import warp
     from sdpgs_torch.train.loop import REPROJ_PREFETCH
 
     with torch.no_grad():
         depths = data["depth_mono"].contiguous()
+        H, W = depths.shape[-2:]
         K, R_train, t_train, pcams = pseudo_geometry(data, REPROJ_PREFETCH, seed=1)
         R_p = torch.stack([c.view[:3, :3] for c in pcams]).to(dev)
         t_p = torch.stack([c.view[:3, 3] for c in pcams]).to(dev)
         geo = (K.to(dev), R_train.to(dev), t_train.to(dev))
         pc = warp.pair_rows(*geo, R_p, t_p)
         main = k6_versus_plain(depths, pc, f"{REPROJ_PREFETCH} pseudo cameras")
+        require(main["path"] == "cluster", "the prefetch's shape did not take the cluster path")
+        errs = [main["err"]]
+        errs.append(k6_versus_plain(depths, pc[:depths.shape[0]], "in step, 3 pairs")["err"])
         eye = torch.eye(3, device=dev)[None]
         far = warp.pair_rows(geo[0], geo[1][:1], geo[2][:1], eye,
                              geo[2][:1] + torch.tensor([[BASELINE_FAR, 0.0, 0.0]], device=dev))
         wide = k6_versus_plain(depths[:1].contiguous(), far, "wide baseline")
-        err = max(main["err"], wide["err"])
+        errs.append(wide["err"])
         require(wide["max_du"] > 128, "the wide-baseline pair stayed inside 128 px")
         holes = depths[:1].clone()
-        H, W = holes.shape[-2:]
         holes[:, H // 4:H // 2, W // 4:W // 2] = 0.0
         tilt = torch.tensor([[0.8, 0.0, 0.6], [0.0, 1.0, 0.0], [-0.6, 0.0, 0.8]], device=dev)
         edge = warp.pair_rows(geo[0], geo[1][:1], geo[2][:1], tilt[None],
                               torch.tensor([[0.4, 0.3, -0.5]], device=dev))
-        err = max(err, k6_versus_plain(holes, edge, "holes, out of frame")["err"])
+        errs.append(k6_versus_plain(holes, edge, "holes, out of frame")["err"])
+        for (w, h), want in K6_SIZES:
+            d, Ks = rescaled(depths[:1], geo[0], w, h)
+            pair = warp.pair_rows(Ks, geo[1][:1], geo[2][:1], R_p[:1], t_p[:1])
+            res = k6_versus_plain(d, pair, f"{w}x{h}")
+            require(res["path"] == want, f"K6 at {w}x{h} took the {res['path']} path")
+            errs.append(res["err"])
+            del d
+        # every row into block 0's band: v = rint(y (rows - 1) / (H - 1))
+        rows = warp.zbuf_plan(H, W).rows
+        squash = single_pair(dev, [[1, 0, 0], [0, (rows - 1) / (H - 1), 0], [0, 0, 1]])
+        one = k6_versus_plain(depths[:1].contiguous(), squash, "one band")
+        require(not bool((one["out"][:, rows:] > 0).any()),
+                "the one-band pair filled a pixel outside block 0's band")
+        # every row onto 5 x 3 pixels across the edge of bands 1 and 2
+        mid = rows * 2 - 1.0
+        crowd = k6_versus_plain(depths[:1].contiguous(), single_pair(
+            dev, [[4.0 / W, 0, W / 2 - 2], [0, 2.0 / H, mid - 1], [0, 0, 1]]), "collapsed")
+        require(crowd["filled"] <= 15, "the collapsed pair filled more than 15 pixels")
+        errs += [one["err"], crowd["err"]]
     n_rows = pc.shape[0] * depths[0].numel()
-    return dict(depths=depths, pc=pc, rows=n_rows, err=err)
+    return dict(depths=depths, pc=pc, rows=n_rows, err=max(errs), plain=main["out"],
+                geo=(*geo, R_p, t_p))
+
+
+def zbuf_launch(depths, pc, cluster: int, rows: int, out=None) -> torch.Tensor:
+    """K6's C entry with a design the plan may not pick (the probes), into
+    ``out`` when given: clusters of ``cluster`` blocks of ``rows`` rows, or
+    the general path at cluster 0."""
+    from sdpgs_torch import _kernels
+
+    V, H, W = depths.shape
+    if out is None:
+        out = torch.empty((pc.shape[0], H, W), device=depths.device)
+    err = _kernels.lib().sdpgs_warp_zbuf(
+        _kernels.ptr(depths), _kernels.ptr(pc), _kernels.ptr(out), pc.shape[0], V, H, W,
+        cluster, rows, _kernels.stream(depths.device))
+    require(err == 0, f"K6 probe (cluster {cluster}, rows {rows}) failed to launch: {err}")
+    return out
+
+
+def k6_designs_timed(depths, pc, ref, clusters, chunk: int) -> dict:
+    """K6's designs on these pairs, each held bit for bit to ``ref`` (the
+    plain version's z-buffers) and timed: the general path's three kernels
+    over all pairs and over chunks of ``chunk`` pairs (chunk % V == 0, so a
+    chunk's pairs read the same views), and clusters of each of
+    ``clusters`` blocks whose band fits one block's shared memory, each
+    block projecting its own band of source rows."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.ops import warp
+
+    V, H, W = depths.shape
+    plan = warp.zbuf_plan(H, W)
+    where = f"{pc.shape[0]} pairs at {W}x{H}"
+
+    def chunked():
+        out = torch.empty_like(ref)
+        for a in range(0, pc.shape[0], chunk):
+            zbuf_launch(depths, pc[a:a + chunk], 0, H, out=out[a:a + chunk])
+        return out
+
+    designs = {"general, all pairs": lambda: zbuf_launch(depths, pc, 0, H),
+               f"general, chunks of {chunk} pairs": chunked}
+    for c in clusters:
+        rows = -(-H // c)
+        if rows * W * 4 > warp.MAX_SMEM_BYTES:
+            print(f"  K6 probe, {where}: no cluster of {c} (a block's {rows} rows take "
+                  f"{rows * W * 4} B, above {warp.MAX_SMEM_BYTES})")
+            continue
+        tag = ", the plan's" if (c, rows) == (plan.cluster, plan.rows) else ""
+        designs[f"cluster {c} x {rows} rows{tag}"] = (
+            lambda c=c, rows=rows: zbuf_launch(depths, pc, c, rows))
+        print(f"  K6 probe, {where}: clusters of {c} x {rows} rows resident at once "
+              f"{_kernels.lib().sdpgs_warp_zbuf_clusters(c, rows, W)}")
+    ref_bits = ref.view(torch.int32)
+    times = {}
+    for name, fn in designs.items():
+        same = torch.equal(fn().view(torch.int32), ref_bits)
+        require(same, f"K6 probe [{name}, {where}] disagrees with the plain version")
+        times[name] = cuda_ms(fn)
+        print(f"  K6 probe, {where} [{name}]: {times[name]:.4f} ms, bit-identical {same}")
+    best = min(times, key=times.get)
+    print(f"  K6 probe, {where}: fastest [{best}]; the plan takes the {plan.path} path"
+          + (f", {plan.cluster} x {plan.rows} rows" if plan.path == "cluster" else ""))
+    return times
+
+
+def k6_probes(warp_check: dict) -> dict:
+    """K6's designs at the prefetch's pair count, each bit-identical to the
+    plain version and timed: at 504x378 clusters of K6_PROBE_CLUSTERS
+    blocks and the general path over all pairs and chunks of K6_CHUNK
+    pairs; at 1008x756 (the depths resized, the intrinsics scaled) the
+    plan's cluster of 16 against the general path over all pairs and
+    chunks of K6_CHUNK_2X."""
+    from sdpgs_torch.ops import warp
+
+    depths, pc, ref = warp_check["depths"], warp_check["pc"], warp_check.pop("plain")
+    K, R_train, t_train, R_p, t_p = warp_check["geo"]
+    V, H, W = depths.shape
+    times = k6_designs_timed(depths, pc, ref, K6_PROBE_CLUSTERS, K6_CHUNK)
+    del ref
+    d2, K2 = rescaled(depths, K, 2 * W, 2 * H)
+    pc2 = warp.pair_rows(K2, R_train, t_train, R_p, t_p)
+    ref2 = warp.warp_zbuffer_rows_plain(d2, pc2)
+    times_2x = k6_designs_timed(d2, pc2, ref2, K6_PROBE_CLUSTERS_2X, K6_CHUNK_2X)
+    return dict(llff=times, double=times_2x)
+
+
+def kernel_resources(source: str) -> dict:
+    """Registers and spill bytes of each kernel of ``source`` in this
+    build's ptxas log ({} when the library came from the cache)."""
+    import re
+
+    from sdpgs_torch import _kernels
+
+    found, name, in_src = {}, None, False
+    for line in _kernels.BUILD_LOG.splitlines():
+        if line.startswith("== "):
+            in_src = line[3:].strip() == source
+            continue
+        if not in_src:
+            continue
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)E", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            found.setdefault(name, {})["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+    return found
 
 
 def check_depth_net(data: dict, dev) -> dict:
@@ -1099,7 +1282,9 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
     from sdpgs_torch.config import TrainConfig
     from sdpgs_torch.core.gaussians import Gaussians
     from sdpgs_torch.losses import reproject_fused_depth
+    from sdpgs_torch.losses.depth import _fuse_warped
     from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+    from sdpgs_torch.ops import warp
     from sdpgs_torch.opt.adam import TRAINABLE
     from sdpgs_torch.train.loop import REPROJ_PREFETCH, prefetch_pseudo_reproj
     from sdpgs_torch.train.state import TrainState
@@ -1162,12 +1347,13 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
         l1s.append(float(m.l1))
         losses.append(float(m.loss))
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    k6_paths = dict(_kernels.WARP_PATH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     first, last = cycle_means(l1s)
     loss_first, loss_last = cycle_means(losses)
     step_ms = statistics.median(times[TRAIN_WARMUP:])
-    print(f"  launches {launches}; plain calls {plain}; prefetch of {len(queue)} cameras "
-          f"{prefetch_s * 1e3:.1f} ms (first call)")
+    print(f"  launches {launches} (K6 by path {k6_paths}); plain calls {plain}; prefetch of "
+          f"{len(queue)} cameras {prefetch_s * 1e3:.1f} ms (first call)")
     print(f"  loss first cycle {loss_first:.5f} -> last cycle {loss_last:.5f} (ratio "
           f"{loss_last / loss_first:.3f}, limit {PSEUDO_LOSS_MARGIN}); L1 {first:.5f} -> {last:.5f} (ratio "
           f"{last / first:.3f}); final PSNR {float(m.psnr):.2f} dB")
@@ -1179,6 +1365,7 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
                 for k in _kernels.FORWARD_KERNELS + _kernels.BACKWARD_KERNELS),
             "a render kernel was not launched twice per pseudo step")
     require(launches["warp_zbuf"] == 1, "the prefetch did not launch K6 once")
+    require(k6_paths == {"cluster": 1, "general": 0}, "the prefetch's K6 took the general path")
     require(not any(plain.values()), "a plain version ran on the pseudo path")
     require(all(bool(torch.isfinite(p).all()) for p in state.gaussians.parameters()),
             "non-finite parameters after pseudo training")
@@ -1205,13 +1392,23 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
                       device=dev)
     dpt_ms = cuda_ms(lambda: torch.autograd.grad(mono(x), x, cot), reps=10)
     prefetch_ms = cuda_ms(lambda: prefetch_pseudo_reproj(depths, Kd, Rd, td, pcams), reps=5)
+    # the prefetch's parts: K6, the fusion of its z-buffers, the rest (the
+    # cameras' copy to the card, which synchronises, and pair_rows)
+    with torch.no_grad():
+        pc = warp.pair_rows(Kd, Rd, td, torch.stack([c.view[:3, :3] for c in pcams]).to(dev),
+                            torch.stack([c.view[:3, 3] for c in pcams]).to(dev))
+        warped = warp.warp_zbuffer_rows(depths, pc).reshape(len(pcams), *depths.shape)
+        k6_ms = cuda_ms(lambda: warp.warp_zbuffer_rows(depths, pc), reps=5)
+        fuse_ms = cuda_ms(lambda: _fuse_warped(warped, 2, 0.05), reps=5)
+    del warped
     print(f"  depth net forward + input gradient: {dpt_ms:.3f} ms; prefetch per "
-          f"{len(pcams)} pseudo cameras: {prefetch_ms:.3f} ms")
+          f"{len(pcams)} pseudo cameras: {prefetch_ms:.3f} ms: K6 {k6_ms:.4f} ms, _fuse_warped "
+          f"{fuse_ms:.4f} ms, the rest {prefetch_ms - k6_ms - fuse_ms:.4f} ms")
     prof = profile_calls(lambda i: step(state, batches[i % TRAIN_CAMS], protos, bg, 1.0,
                                         pseudo=pseudos[i], device=dev),
                          list(range(TRAIN_CAMS)), "pseudo step", top=16)
     return dict(launches=launches, step_ms=step_ms, peak=peak, dpt_ms=dpt_ms,
-                prefetch_ms=prefetch_ms, **prof)
+                prefetch_ms=prefetch_ms, prefetch_k6_ms=k6_ms, prefetch_fuse_ms=fuse_ms, **prof)
 
 
 def sort_inputs(rng, n: int, dead: float, edge: bool, dev):
@@ -1495,8 +1692,8 @@ def trainer_phase(dev, raw, work: Path) -> dict:
     by_iter = {h["iter"]: h for h in hist}
     print(f"trainer: {opt.iterations} iterations ({n_plain} plain, {n_pseudo} pseudo) at "
           f"{WIDTH}x{HEIGHT}, {TRAINER_SCENE['n_points']} ground-truth points, capacity "
-          f"{TRAINER_SCENE['capacity']}, in {train_s:.1f} s; launches {launches}; plain calls "
-          f"{plain}")
+          f"{TRAINER_SCENE['capacity']}, in {train_s:.1f} s; launches {launches} (K6 by path "
+          f"{_kernels.WARP_PATH_LAUNCHES}); plain calls {plain}")
     for e in trainer.events:
         print(f"  densify at {e['iteration']}: {e['ms']:.1f} ms ({'with' if e['knn'] else 'without'}"
               f" the k-NN), spawned {e['spawned']}, dropped {e['dropped']}, pruned {e['pruned']} "
@@ -1512,6 +1709,8 @@ def trainer_phase(dev, raw, work: Path) -> dict:
             "K4-K5 did not launch once per plain iteration and twice per pseudo one")
     require(launches["warp_zbuf"] == -(-n_pseudo // REPROJ_PREFETCH),
             "K6 did not launch once per prefetch")
+    require(_kernels.WARP_PATH_LAUNCHES == {"cluster": launches["warp_zbuf"], "general": 0},
+            f"K6's prefetches did not take the cluster path: {_kernels.WARP_PATH_LAUNCHES}")
     require(launches["sort"] == launches["launch_floor"] == 0 and not any(plain.values()),
             "K7/K8 or a plain version ran on the Trainer path")
     events = [i for i in range(opt.densify_from_iter + 1, opt.densify_until_iter)
@@ -1600,6 +1799,17 @@ def forced_ladder(dev, scene) -> None:
           f"maxima after the reaction {maxima}")
     require(r.max_per_tile == 256 and r.max_tiles_per_gaussian == 4 and maxima == [0, 0],
             "the ladder did not double K and D and reset the running maxima")
+
+
+def k1_k4_times(k1_args, k4_args) -> tuple:
+    """K1's and K4's own times: the bare launchers with the camera vector
+    on the host (they pass it to the kernel by value, so no copy to the
+    host waits out the device sleep inside the timed window)."""
+    from sdpgs_torch.ops.rasterize import preprocess_cuda as pp
+
+    cam = k1_args[2].cpu()
+    return (cuda_ms(lambda: pp.preprocess_rows_fwd(*k1_args[:2], cam, *k1_args[3:])),
+            cuda_ms(lambda: pp.preprocess_rows_bwd(*k4_args[:2], cam, *k4_args[3:])))
 
 
 def require(cond: bool, what: str) -> None:
@@ -1741,6 +1951,11 @@ def drive(dev: torch.device, work: Path) -> int:
     # -- 9. pseudo-view training: K6, the depth net, the pseudo steps ------
     _, pdata = train_scene(rng, dev, WIDTH, HEIGHT, CAPACITY, ALIVE)
     warp_check = check_warp(pdata, dev)
+    k6_probes(warp_check)
+    for fn, res in kernel_resources("warp_zbuf.cu").items():
+        path = "cluster path" if "cluster" in fn else "general path"
+        print(f"  K6 {path} {fn}: {res.get('registers')} registers, {res.get('spill')} bytes "
+              f"spilled")
     dnet = check_depth_net(pdata, dev)
     check_pseudo_step_card_vs_cpu(rng, dev, dnet["raw"])
     pseudo = pseudo_train_phase(rng, dev, dnet["raw"])
@@ -1755,13 +1970,12 @@ def drive(dev: torch.device, work: Path) -> int:
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
     with torch.no_grad():
-        k1_ms = cuda_ms(lambda: preprocess_cuda.preprocess_rows(*k1_args))
+        k1_ms, k4_ms = k1_k4_times(k1_args, k4_args)
         k1_plain = cuda_ms(lambda: preprocess_cuda.preprocess_rows_plain(*k1_args))
         k2_ms = cuda_ms(lambda: binning.build_table(*k2_args))
         k2_plain = cuda_ms(lambda: binning.build_table_plain(*k2_args))
         k3_ms = cuda_ms(lambda: composite_cuda.composite_gather(*k3_args))
         k3_plain = cuda_ms(lambda: composite_cuda.composite_gather_plain(*k3_args))
-        k4_ms = cuda_ms(lambda: preprocess_cuda.preprocess_rows_bwd(*k4_args))
         k4_plain = cuda_ms(lambda: preprocess_cuda.preprocess_vjp_plain(*k4_args))
         k5_ms = cuda_ms(lambda: composite_cuda.composite_gather_bwd(*k5_args))
         k5_plain = cuda_ms(lambda: composite_cuda.composite_vjp_plain(

@@ -59,6 +59,8 @@ KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS + SORT_KERNELS + PRO
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+# K6's launches by path (ops/warp.py:zbuf_plan), beside LAUNCHES["warp_zbuf"]
+WARP_PATH_LAUNCHES = {"cluster": 0, "general": 0}
 BUILD_LOG = ""
 
 _P = ctypes.c_void_p
@@ -85,8 +87,11 @@ _SIGNATURES = {
     # stats(or null), P, num_tiles, tiles_x, tile, K, alpha_min, alpha_max,
     # stream
     "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
-    # depths, pc, out, n_pairs, V, H, W, stream
-    "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # depths, pc, out, n_pairs, V, H, W, cluster (0: the general path), rows,
+    # stream
+    "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # cluster, rows, W -> clusters resident at once (or -error)
+    "sdpgs_warp_zbuf_clusters": [_I, _I, _I],
     # key, val, gid, key_out, val_out, gid_out, key_tmp, val_tmp, gid_tmp,
     # scratch, n, stream
     "sdpgs_sort_by_key": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -102,6 +107,8 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in WARP_PATH_LAUNCHES:
+        WARP_PATH_LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:

@@ -6,19 +6,70 @@ view and keeps the nearest z per destination pixel (a scatter-min; 0 =
 hole), as ``losses/depth.py:warp_depth_to_view`` does for one pair.
 
 On CUDA tensors all pairs go through kernel K6 (``csrc/warp_zbuf.cu``) in
-one launch; on CPU tensors through :func:`warp_zbuffer_rows_plain`, the
+one call; on CPU tensors through :func:`warp_zbuffer_rows_plain`, the
 projection in elementwise torch and ``scatter_reduce_(..., "amin")`` (JAX's
 ``.at[].min``). Both take the same per-pair ``[proj | c]`` rows and
 evaluate them in the same association order, so their z-buffers are
 bit-identical. The TPU kernel's displacement window is not carried over:
 every row scatters, so the outlier counts are always 0.
+
+K6 has two paths, chosen by :func:`zbuf_plan` from the shape alone: the
+cluster path keeps each pair's z-buffer in the shared memory of one
+thread-block cluster (every shape up to 16 blocks of 232,448 bytes, so
+504x378 and 1008x756), the general path fills, scatters into and
+finalizes the z-buffers in device memory (larger pairs, such as
+4032x3024). Each wrapper call launches one path once and counts it in
+``_kernels.WARP_PATH_LAUNCHES``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sdpgs_torch import _kernels
+
+# Mirrored from csrc/warp_zbuf.cu (tests/test_torch_warp_plan.py checks them).
+INF_BITS = 0x7F800000          # kInfBits: +inf, the fill and a hole
+MAX_SMEM_BYTES = 232_448       # kMaxSmemBytes: dynamic shared memory of one block
+SM_SMEM_BYTES = 233_472        # kSmemPerSm: shared memory an SM hands out
+BLOCK_RESERVED_BYTES = 1_024   # kSmemReserved: the runtime's share of each block
+PORTABLE_CLUSTER = 8           # kPortableCluster: above it, the non-portable opt-in
+MAX_CLUSTER = 16               # kMaxCluster: the largest cluster the H100 schedules
+# A block's shared memory: first as much as lets two blocks share an SM
+# (one block's write-out then overlaps the other's scatter), then as much
+# as one block may have.
+SMEM_TIERS = (SM_SMEM_BYTES // 2 - BLOCK_RESERVED_BYTES, MAX_SMEM_BYTES)
+# Powers of two: the GPCs hold whole clusters of these best (at 504x378,
+# two blocks an SM, the 30 resident clusters of 8 fill 120 SMs, the 32 of
+# 7 fill 112, and 7 took 8% longer).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+class ZbufPlan(NamedTuple):
+    """K6's launch for one shape: ``path`` "cluster" with ``cluster`` blocks
+    a pair, each owning ``rows`` destination rows and ``smem_bytes`` of
+    shared memory, or "general" (cluster 0, rows H, no shared memory)."""
+    path: str
+    cluster: int
+    rows: int
+    smem_bytes: int
+
+
+def zbuf_plan(H: int, W: int) -> ZbufPlan:
+    """K6's path for [n, H, W] z-buffers, from the shape alone: the
+    smallest cluster of CLUSTER_SIZES whose blocks each hold ceil(H / c)
+    rows of a pair's z-buffer within the first of SMEM_TIERS (bytes a
+    block) that any cluster meets, else the general path. At 504x378: 8
+    blocks of 48 rows, 96,768 bytes each, two blocks an SM; at 1008x756:
+    16 blocks of 48 rows, one an SM; at 4032x3024: the general path."""
+    for limit in SMEM_TIERS:
+        for c in CLUSTER_SIZES:
+            rows = -(-H // c)
+            if rows * W * 4 <= limit:
+                return ZbufPlan("cluster", c, rows, rows * W * 4)
+    return ZbufPlan("general", 0, H, 0)
 
 
 def pair_rows(K, R_train, t_train, R_pseudo, t_pseudo) -> torch.Tensor:
@@ -85,16 +136,25 @@ def warp_zbuffer_rows_plain(depths: torch.Tensor, pc: torch.Tensor) -> torch.Ten
 def warp_zbuffer_rows(depths: torch.Tensor, pc: torch.Tensor) -> torch.Tensor:
     """Kernel K6 on CUDA tensors, its plain version on CPU tensors.
     depths [V, H, W] f32; pc [n, 12] f32 from :func:`pair_rows`; returns
-    [n, H, W] f32."""
+    [n, H, W] f32. The path is :func:`zbuf_plan`'s; a cluster that the
+    device cannot hold raises (no retry on the other path)."""
     if not depths.is_cuda:
         return warp_zbuffer_rows_plain(depths, pc)
     V, H, W = depths.shape
     n = pc.shape[0]
     _kernels.check(depths, "depths", torch.float32, (V, H, W))
     _kernels.check(pc, "pc", torch.float32, (n, 12))
+    plan = zbuf_plan(H, W)
+    if plan.path == "cluster":
+        active = _kernels.lib().sdpgs_warp_zbuf_clusters(plan.cluster, plan.rows, W)
+        if active <= 0:
+            raise RuntimeError(f"K6: the device holds no cluster of {plan.cluster} blocks with "
+                               f"{plan.smem_bytes} bytes of shared memory each ({active})")
     out = torch.empty((n, H, W), dtype=torch.float32, device=depths.device)
     _kernels.launch("warp_zbuf", "sdpgs_warp_zbuf", _kernels.ptr(depths), _kernels.ptr(pc),
-                    _kernels.ptr(out), n, V, H, W, _kernels.stream(depths.device))
+                    _kernels.ptr(out), n, V, H, W, plan.cluster, plan.rows,
+                    _kernels.stream(depths.device))
+    _kernels.WARP_PATH_LAUNCHES[plan.path] += 1
     return out
 
 
