@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's eight kernels from ``sdpgs_torch/csrc/`` with nvcc and
-drives its four paths at the LLFF protocol's size (504x378, capacity
+drives its five paths at the LLFF protocol's size (504x378, capacity
 131,072, 60,000 alive, SH degree 3), and the two kernels' own entry
 points, clouds, images and weights made from a seed:
 
@@ -60,7 +60,22 @@ points, clouds, images and weights made from a seed:
   eval view), K6 twice, nothing else; an event must spawn and the prune
   after the reset remove some; PSNR must rise from 100 to 300; the report
   files must exist and the checkpoint restore to equal arrays. A Trainer
-  with tight K and D must double both at its next log point.
+  with tight K and D must double both at its next log point;
+- the train CLI from disk: an LLFF tree in fern's layout is written (a
+  COLMAP model of 20 views of a 4032x3024 PINHOLE camera, images_8/ at
+  504x378 rendered from a hidden cloud, poses_bounds.npy, 16-segment
+  language features, aligned depths, and 3_views/dense/fused.ply of 60,000
+  points); its ``Scene`` on the card must equal the CPU's (host arrays
+  identical, Gaussians within 1e-6 of each field's max: the k-NN init on
+  each) with 3 train and 3 test views and 60,000 of 131,072 slots alive;
+  then ``python -m sdpgs_torch.cli.train_cli``'s ``main`` trains it for
+  300 iterations (the DPT-Hybrid from an .npz; densify at 100 with the
+  k-NN and 200 without; a pseudo window of 60 iterations from one K6
+  prefetch; eval at 100 and 300, a save and a checkpoint at 300): K1-K5
+  must launch once per plain iteration and twice per pseudo one (K1-K3
+  also once per eval view), K6 once, nothing else; the train L1 must fall
+  from 100 to 300 and the model directory hold its files; a second ``main``
+  resumes from the checkpoint for iterations 301-310.
 
 It then times each kernel, its plain version, a render, a train step, a
 pseudo step (and the prefetch's K6, fusion and rest) and the Trainer's
@@ -179,6 +194,24 @@ TRAINER_SCENE = dict(n_points=ALIVE, capacity=CAPACITY, width=WIDTH, height=HEIG
                      depth_center=4.0, init_scale=2e-4)
 TRAINER_LOG_EVERY = 100
 BARE_STEPS = 20               # bare step timing: median after TRAIN_WARMUP
+# The train CLI phase: an LLFF tree on disk in fern's layout (20 views of a
+# 4032x3024 camera, read at /8 through images_8), its MVS cloud the 60,000
+# points of the other cells, and TrainConfig() with the schedule compressed
+# on the per-field flags: densify at 100 (with the k-NN) and 200 (without),
+# a pseudo window of 60 iterations (one K6 prefetch) whose opacity reset
+# comes before the first log point, eval at 100 and 300.
+LLFF_FULL = (4032, 3024)
+LLFF_DIVIDER = 8
+LLFF_VIEWS = 20
+LLFF_SPARSE = 2_000           # COLMAP's sparse points (the fused cloud is the init)
+LLFF_BOUNDS = (1.0, 10.0)     # poses_bounds.npy near and far
+LLFF_SEED = 8
+CLI_ITERATIONS = 300
+CLI_LOG_EVERY = 100           # the Trainer's default log cadence; the first eval
+CLI_RESUME = 10
+CLI_OPTIM = dict(densify_from_iter=50, densification_interval=100, densify_until_iter=250,
+                 proximity_until_iter=150, start_sample_pseudo=30, end_sample_pseudo=91)
+SCENE_TOL = 1e-6              # Scene card vs CPU: Gaussians within this of each field's max
 
 
 def card_line() -> str:
@@ -1801,6 +1834,256 @@ def forced_ladder(dev, scene) -> None:
             "the ladder did not double K and D and reset the running maxima")
 
 
+def write_colmap_model(sparse: Path, width: int, height: int, fx: float, fy: float,
+                       names: list, tvecs: list, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """cameras.bin (one PINHOLE camera), images.bin (identity rotations,
+    no keypoints) and points3D.bin (no tracks) in COLMAP's binary layout."""
+    import struct
+
+    sparse.mkdir(parents=True)
+    with open(sparse / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<QiiQQ", 1, 1, 1, width, height))
+        f.write(struct.pack("<dddd", fx, fy, width / 2, height / 2))
+    with open(sparse / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, (name, t) in enumerate(zip(names, tvecs)):
+            f.write(struct.pack("<i4d3di", i + 1, 1.0, 0.0, 0.0, 0.0, *t, 1))
+            f.write(name.encode() + b"\x00" + struct.pack("<Q", 0))
+    rec = np.zeros(len(xyz), np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                                       ("err", "<f8"), ("track", "<u8")]))
+    rec["id"], rec["xyz"], rec["rgb"], rec["err"] = np.arange(len(xyz)), xyz, rgb, 0.5
+    with open(sparse / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(rec)) + rec.tobytes())
+
+
+def write_llff_tree(root: Path, dev) -> dict:
+    """An LLFF scene on disk, in the layout of LLFF's fern: a COLMAP model of
+    LLFF_VIEWS views of one 4032x3024 PINHOLE camera on a forward-facing
+    5 x 4 grid, images_8/ (504x378 PNGs) with poses_bounds.npy, language
+    features with PROTOTYPES segments, aligned depths and the MVS cloud
+    3_views/dense/fused.ply of ALIVE points. Images, depths and segments are
+    rendered on ``dev`` from a hidden cloud (as data/synthetic.py does),
+    the fused cloud is that cloud jittered and grey."""
+    from PIL import Image
+
+    from sdpgs_torch.config import RasterizeConfig
+    from sdpgs_torch.core.camera import Camera, focal2fov
+    from sdpgs_torch.core.gaussians import create_from_points
+    from sdpgs_torch.data.ply import write_pointcloud_ply
+    from sdpgs_torch.render import render
+
+    rng = np.random.default_rng(LLFF_SEED)
+    W, H = LLFF_FULL
+    w, h = W // LLFF_DIVIDER, H // LLFF_DIVIDER
+    fx, fy = W / (2 * math.tan(0.45)), H / (2 * math.tan(0.35))
+    fovx, fovy = focal2fov(fx, W), focal2fov(fy, H)
+    pts = (rng.normal(size=(ALIVE, 3)) + np.array([0.0, 0.0, 4.0])).astype(np.float32)
+    cols = rng.uniform(size=(ALIVE, 3)).astype(np.float32)
+    protos = rng.normal(size=(PROTOTYPES, 3)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=-1, keepdims=True)
+    ang = np.arctan2(pts[:, 1], pts[:, 0])
+    seg_of_pt = np.clip(((ang + np.pi) / (2 * np.pi) * PROTOTYPES).astype(int), 0,
+                        PROTOTYPES - 1)
+    gt = create_from_points(pts, cols, ALIVE, init_scale=np.full(ALIVE, 2e-4),
+                            initial_opacity=0.9, features=protos[seg_of_pt], device=dev)
+    names = [f"image{i:03d}.png" for i in range(LLFF_VIEWS)]
+    tvecs = [np.array([dx, dy, 0.0]) for dy in np.linspace(-0.15, 0.15, 4)
+             for dx in np.linspace(-0.3, 0.3, 5)]
+    dirs = {k: root / k for k in (f"images_{LLFF_DIVIDER}", "language_features_GGrouping_dim3",
+                                  "depth_adjust_maps_stereo")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    poses_bounds = np.zeros((LLFF_VIEWS, 17))
+    for name, t, pb in zip(names, tvecs, poses_bounds):
+        cam = Camera.create(R=np.eye(3), T=t, fovx=fovx, fovy=fovy, width=w, height=h,
+                            device="cpu")
+        with torch.no_grad():
+            out = render(cam, gt, RasterizeConfig(), torch.zeros(3, device=dev), 0, device=dev)
+        stem = name.split(".")[0]
+        rgb = (np.clip(out.color.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        Image.fromarray(rgb).save(dirs[f"images_{LLFF_DIVIDER}"] / name)
+        np.save(dirs["depth_adjust_maps_stereo"] / f"depth_{stem}.npy", out.depth.cpu().numpy())
+        seg = np.argmax(out.feature.cpu().numpy() @ protos.T, axis=-1)
+        features = dirs["language_features_GGrouping_dim3"]
+        np.save(features / f"{stem}_s.npy", seg.astype(np.int64))
+        np.save(features / f"{stem}_fdim3.npy", protos[np.unique(seg)])
+        # LLFF's pose layout: the c2w columns (y, x, -z, centre) and (H, W, focal)
+        c2w = np.concatenate([np.eye(3), -t[:, None]], 1)
+        pb[:15] = np.concatenate([c2w[:, [1, 0]], -c2w[:, 2:3], c2w[:, 3:],
+                                  np.array([[H], [W], [fx]])], 1).reshape(-1)
+        pb[15:] = LLFF_BOUNDS
+    np.save(root / "poses_bounds.npy", poses_bounds)
+    sparse = rng.choice(ALIVE, LLFF_SPARSE, replace=False)
+    write_colmap_model(root / "sparse" / "0", W, H, fx, fy, names, tvecs, pts[sparse],
+                       (cols[sparse] * 255).astype(np.uint8))
+    (root / "3_views" / "dense").mkdir(parents=True)
+    write_pointcloud_ply(root / "3_views" / "dense" / "fused.ply",
+                         pts + rng.normal(size=pts.shape).astype(np.float32) * 0.05,
+                         np.full((ALIVE, 3), 0.5, np.float32))
+    return dict(width=w, height=h, fovx=fovx, fovy=fovy)
+
+
+def cli_argv(tree: Path, out: Path, dpt: Path) -> list:
+    """The train CLI's command line: TrainConfig()'s defaults but for the
+    schedule, compressed to CLI_ITERATIONS on the per-field flags."""
+    argv = ["-s", str(tree), "-m", str(out), "-r", str(LLFF_DIVIDER), "--nviews", "3",
+            "--dpt_weights", str(dpt), "--iterations", str(CLI_ITERATIONS),
+            "--test_iterations", str(CLI_LOG_EVERY), str(CLI_ITERATIONS),
+            "--checkpoint_iterations", str(CLI_ITERATIONS)]
+    for k, v in CLI_OPTIM.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def check_scene_card_vs_cpu(tree: Path, dev) -> dict:
+    """Scene(cfg) from the tree on the card and on the CPU: the same host
+    arrays, cameras on the host, and Gaussians within SCENE_TOL of each
+    field's largest value (the init scales come from the k-NN on each)."""
+    from sdpgs_torch.cli.train_cli import build_parser, config_from_args
+    from sdpgs_torch.core.gaussians import BUFFER_FIELDS, PARAM_FIELDS
+    from sdpgs_torch.data.scene import Scene
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["-s", str(tree), "-r", str(LLFF_DIVIDER), "--nviews", "3"]))
+    scenes, secs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scenes[d.type] = Scene(cfg, device=d)
+        torch.cuda.synchronize()
+        secs[d.type] = time.perf_counter() - t0
+    card, cpu = scenes[dev.type], scenes["cpu"]
+    same = np.array_equal(card.prototypes, cpu.prototypes) and np.array_equal(
+        card.pseudo_poses, cpu.pseudo_poses) and card.cameras_extent == cpu.cameras_extent
+    for a, b in zip(card.train_cameras + card.test_cameras, cpu.train_cameras + cpu.test_cameras):
+        for k in ("image", "seg_map", "point_feature", "feature_dict", "depth_mono", "bounds"):
+            x, y = getattr(a, k), getattr(b, k)
+            same = same and (x is None and y is None or np.array_equal(x, y))
+        same = same and a.camera.view.device.type == "cpu" and bool(
+            torch.equal(a.camera.full_proj, b.camera.full_proj))
+    g_card, g_cpu = card.gaussians.to_numpy(), cpu.gaussians.to_numpy()
+    errs = {k: float(np.abs(g_card[k] - g_cpu[k]).max() / max(np.abs(g_cpu[k]).max(), 1e-30))
+            for k in PARAM_FIELDS + BUFFER_FIELDS}
+    n_train, n_test = len(card.train_cameras), len(card.test_cameras)
+    alive, slots = card.gaussians.num_alive(), card.gaussians.capacity
+    c0 = card.train_cameras[0]
+    print(f"scene from disk ({LLFF_VIEWS} views, COLMAP {LLFF_FULL[0]}x{LLFF_FULL[1]}, "
+          f"images_{LLFF_DIVIDER} at {c0.width}x{c0.height}): {n_train} train views "
+          f"{[c.image_name for c in card.train_cameras]}, {n_test} test, {alive} alive of "
+          f"{slots}, {card.prototypes.shape[0]} prototypes, {len(card.pseudo_poses)} pseudo "
+          f"poses; load {secs[dev.type]:.2f} s on the card, {secs['cpu']:.2f} s on the CPU "
+          f"({card_line()}); host arrays identical {same}; Gaussians card vs CPU max |diff| / "
+          f"field max { {k: f'{v:.1e}' for k, v in errs.items() if v} or 0} "
+          f"(limit {SCENE_TOL:g})")
+    require(same, "the Scene's host arrays differ between card and CPU loads")
+    require(all(v <= SCENE_TOL for v in errs.values()), "the Scene's Gaussians differ")
+    require((n_train, n_test, alive, slots) == (3, 3, ALIVE, CAPACITY),
+            "the LLFF tree did not load as 3 train and 3 test views with 60,000 of 131,072")
+    del scenes, card, cpu
+    return dict(load_s=secs[dev.type], cpu_load_s=secs["cpu"])
+
+
+def cli_phase(dev, raw, work: Path) -> dict:
+    """The train CLI on an LLFF tree from disk: write the tree, hold its
+    Scene on the card to the CPU's, then ``train_cli.main`` for
+    CLI_ITERATIONS (DPT-Hybrid, random weights, seed 0, bf16; densify at
+    100 with the k-NN and 200 without; pseudo window 31-90, one K6
+    prefetch, the opacity reset at 31; eval at 100 and 300, a save and a
+    checkpoint at 300) and a resume for CLI_RESUME more."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.cli import train_cli
+    from sdpgs_torch.models.dpt import save_params
+    from sdpgs_torch.train import loop
+    from sdpgs_torch.train.loop import REPROJ_PREFETCH
+
+    t_phase = time.perf_counter()
+    tree, out = work / "llff_fern", work / "llff_fern_out"
+    write_llff_tree(tree, dev)
+    dpt = work / "dpt_hybrid_seed0.npz"
+    save_params(dpt, raw, DPT_ARCH)
+    t_written = time.perf_counter() - t_phase
+    scene = check_scene_card_vs_cpu(tree, dev)
+
+    argv = cli_argv(tree, out, dpt)
+    opt = CLI_OPTIM
+    n_pseudo = sum(opt["start_sample_pseudo"] < i < opt["end_sample_pseudo"]
+                   for i in range(1, CLI_ITERATIONS + 1))
+    n_plain = CLI_ITERATIONS - n_pseudo
+    timed = make_timed_trainer()
+    plain_trainer, loop.Trainer = loop.Trainer, timed
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        trainer = train_cli.main(argv, device=dev)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        warp_paths = dict(_kernels.WARP_PATH_LAUNCHES)
+        # the resumed run rewrites the report with its own (empty) history
+        report = json.loads((out / "eval_results.json").read_text())
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        resumed = train_cli.main(argv + [
+            "--iterations", str(CLI_ITERATIONS + CLI_RESUME),
+            "--start_checkpoint", f"{out / 'checkpoints'}:{CLI_ITERATIONS}"], device=dev)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resume_launches = dict(_kernels.LAUNCHES)
+    finally:
+        loop.Trainer = plain_trainer
+    n_eval = len(report) * (len(trainer.scene.train_cameras) + len(trainer.scene.test_cameras))
+    it_ms = {k: (statistics.median(v), len(v)) for k, v in trainer.iter_ms.items()}
+    l1 = {r["iteration"]: r["train"]["l1"] for r in report}
+    files = ["cfg.json", "input.ply", "cameras.json", "eval_results.json",
+             f"point_cloud/iteration_{CLI_ITERATIONS}/point_cloud.ply",
+             f"checkpoints/ckpt_{CLI_ITERATIONS}.pt",
+             f"point_cloud/iteration_{CLI_ITERATIONS + CLI_RESUME}/point_cloud.ply"]
+    missing = [f for f in files if not (out / f).exists()]
+    wall = time.perf_counter() - t_phase
+    card = card_line()
+    print(f"train CLI (python -m sdpgs_torch.cli.train_cli {' '.join(argv[4:])}): "
+          f"{CLI_ITERATIONS} iterations ({n_plain} plain, {n_pseudo} pseudo) in {main_s:.1f} s "
+          f"with the scene and depth-net loads; launches {launches} (K6 by path "
+          f"{warp_paths}); plain calls {plain}")
+    for e in trainer.events:
+        print(f"  densify at {e['iteration']}: {e['ms']:.1f} ms ({'with' if e['knn'] else 'without'}"
+              f" the k-NN), spawned {e['spawned']}, pruned {e['pruned']}, alive after "
+              f"{e['num_alive']}")
+    print(f"  eval train L1 by iteration {l1}; test {[r['test']['l1'] for r in report]}; "
+          f"resume from {CLI_ITERATIONS}: {CLI_RESUME} iterations in {resume_s:.1f} s, launches "
+          f"{resume_launches}; missing files {missing}")
+    print(f"  ms per iteration inside train() (median, one synchronize per iteration): plain "
+          f"{it_ms[False][0]:.3f} (of {it_ms[False][1]}), pseudo {it_ms[True][0]:.3f} (of "
+          f"{it_ms[True][1]}) ({card})")
+    print(f"  scene load {scene['load_s']:.2f} s on the card ({card}); phase wall time "
+          f"{wall:.1f} s ({card}): tree and weights written in {t_written:.1f} s, the CPU "
+          f"scene {scene['cpu_load_s']:.1f} s, CLI {main_s:.1f} s, resume {resume_s:.1f} s")
+    require(launches["preprocess"] == launches["binning"] == launches["composite"]
+            == n_plain + 2 * n_pseudo + n_eval,
+            "CLI: K1-K3 did not launch once per plain iteration, twice per pseudo one and once "
+            "per eval view")
+    require(launches["preprocess_bwd"] == launches["composite_bwd"] == n_plain + 2 * n_pseudo,
+            "CLI: K4-K5 did not launch once per plain iteration and twice per pseudo one")
+    require(launches["warp_zbuf"] == -(-n_pseudo // REPROJ_PREFETCH) >= 1,
+            "CLI: K6 did not launch once per prefetch")
+    require(warp_paths == {"cluster": launches["warp_zbuf"], "general": 0},
+            f"CLI: K6's prefetch did not take the cluster path: {warp_paths}")
+    require(launches["sort"] == launches["launch_floor"] == 0 and not any(plain.values()),
+            "CLI: K7/K8 or a plain version ran")
+    require([e["knn"] for e in trainer.events] == [True, False],
+            "CLI: not one densify event with the k-NN and one without")
+    require(sorted(l1) == [CLI_LOG_EVERY, CLI_ITERATIONS]
+            and l1[CLI_ITERATIONS] < l1[CLI_LOG_EVERY],
+            f"CLI: the train L1 did not fall from {CLI_LOG_EVERY} to {CLI_ITERATIONS}")
+    require(not missing, f"CLI: the model directory lacks {missing}")
+    require(resumed.state.step == CLI_ITERATIONS + CLI_RESUME
+            and resume_launches["preprocess_bwd"] == CLI_RESUME,
+            f"CLI: the resume did not run iterations {CLI_ITERATIONS + 1}-"
+            f"{CLI_ITERATIONS + CLI_RESUME}")
+    return dict(launches=launches, it_ms=it_ms, wall=wall, load_s=scene["load_s"])
+
+
 def k1_k4_times(k1_args, k4_args) -> tuple:
     """K1's and K4's own times: the bare launchers with the camera vector
     on the host (they pass it to the kernel by value, so no copy to the
@@ -1827,8 +2110,8 @@ def main(device: str = "cuda") -> int:
 
 
 def drive(dev: torch.device, work: Path) -> int:
-    """Phases 2-11 on ``dev``, writing the PLY, the renders and the Trainer's files
-    under ``work``."""
+    """Phases 2-12 on ``dev``, writing the PLY, the renders, the Trainer's files
+    and the LLFF tree with the CLI's model directory under ``work``."""
     from sdpgs_torch import _kernels
     from sdpgs_torch.cli.render_cli import render_set
     from sdpgs_torch.config import RasterizeConfig
@@ -1965,7 +2248,10 @@ def drive(dev: torch.device, work: Path) -> int:
     trainer = trainer_phase(dev, dnet["raw"], work)
     forced_ladder(dev, trainer["scene"])
 
-    # -- 11. kernel timings and bounds --------------------------------------
+    # -- 11. the train CLI on an LLFF tree from disk -------------------------
+    cli = cli_phase(dev, dnet["raw"], work)
+
+    # -- 12. kernel timings and bounds --------------------------------------
     k1_args, k2_args, k3_args = (main_check[k] for k in ("k1_args", "k2_args", "k3_args"))
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
@@ -2029,10 +2315,10 @@ def drive(dev: torch.device, work: Path) -> int:
         "k7": bound(k7_bytes), "k8": bound(k8_bytes),
     }
     rast = "sdpgs_tpu/ops/rasterize/"
-    # launches: K1-K6 on the Trainer's run (this slice's main path; the
-    # render, train and pseudo paths printed theirs above), K7 and K8 on
-    # their own paths
-    tr, per_tr = trainer["launches"], "on the Trainer run"
+    # launches: K1-K6 on the train CLI's run (this slice's main path; the
+    # render, train, pseudo and Trainer paths printed theirs above), K7 and
+    # K8 on their own paths
+    tr, per_tr = cli["launches"], "on the train CLI run"
     rows = [
         ("preprocess_sh_fwd", "preprocess.cu", rast + "preprocess_pallas.py:227", "preprocess",
          tr, per_tr, "k1", main_check["k1_err"], k1_ms, k1_plain, None),

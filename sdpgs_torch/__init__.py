@@ -16,7 +16,10 @@ that ``train/loop.prefetch_pseudo_reproj`` builds for 64 pseudo cameras at
 a time. The training loop: ``train/loop.Trainer`` runs both steps on a
 schedule with densify and prune (``opt/densify.py``, the k-NN of
 ``ops/knn.py``), the opacity reset, the capacity ladder, evaluation and
-checkpoints, on an in-memory ``data/synthetic.SyntheticScene``. Eight
+checkpoints, on a dataset loaded from disk (``data/scene.Scene``: COLMAP,
+Blender and mip-NeRF-360 trees) or an in-memory
+``data/synthetic.SyntheticScene``; ``python -m sdpgs_torch.cli.train_cli
+-s <scene> -m <out>`` drives it with the JAX package's flags. Eight
 kernels in ``csrc/`` carry them on the card: three forward (preprocess,
 binning, compositing), two backward (preprocess, compositing), the
 reprojection z-buffer, and two that serve their own entry points, the

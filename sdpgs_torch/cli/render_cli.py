@@ -1,8 +1,8 @@
 """Render a set of views to PNG with depth and feature dumps: the
 counterpart of ``sdpgs_tpu/cli/render_cli.py`` (reference render.py:27-118).
 
-``render_set`` is ported; the command-line ``main`` needs the dataset
-``Scene`` and comes with the data-layer slice.
+``render_set`` is ported; the command-line ``main`` over
+``data/scene.RenderScene`` is still to port (ROADMAP.md A3).
 """
 
 from __future__ import annotations

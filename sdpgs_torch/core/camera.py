@@ -53,6 +53,10 @@ def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 @dataclass
 class Camera:
     """One view: f32 tensors on one device, plus the image size."""

@@ -75,3 +75,8 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def rgb_to_sh(rgb):
     """RGB in [0,1] -> DC SH coefficient (reference/utils/sh_utils.py:119)."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB, the inverse of :func:`rgb_to_sh`."""
+    return sh * C0 + 0.5

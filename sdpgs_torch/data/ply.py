@@ -79,6 +79,40 @@ def read_ply(path) -> Dict[str, np.ndarray]:
     return {name: np.ascontiguousarray(rec[name]) for name, _ in dtype}
 
 
+def read_pointcloud_ply(path) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(points [N,3], colors [N,3] in [0,1], normals [N,3]); the reference's
+    ``fetchPly`` (dataset_readers.py)."""
+    p = read_ply(path)
+    pts = np.stack([p["x"], p["y"], p["z"]], axis=-1).astype(np.float32)
+    if "red" in p:
+        cols = np.stack([p["red"], p["green"], p["blue"]], axis=-1).astype(np.float32)
+        if cols.max() > 1.5:
+            cols = cols / 255.0
+    else:
+        cols = np.full_like(pts, 0.5)
+    if "nx" in p:
+        normals = np.stack([p["nx"], p["ny"], p["nz"]], axis=-1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, cols, normals
+
+
+def write_pointcloud_ply(path, points, colors=None, normals=None) -> None:
+    """x, y, z, nx, ny, nz and, with ``colors`` in [0, 1], uchar red, green,
+    blue: the layout :func:`read_pointcloud_ply` reads."""
+    points = np.asarray(points, np.float32)
+    props = {"x": points[:, 0], "y": points[:, 1], "z": points[:, 2]}
+    if normals is None:
+        normals = np.zeros_like(points)
+    props.update(nx=normals[:, 0].astype(np.float32),
+                 ny=normals[:, 1].astype(np.float32),
+                 nz=normals[:, 2].astype(np.float32))
+    if colors is not None:
+        cols = (np.clip(np.asarray(colors), 0, 1) * 255).astype(np.uint8)
+        props.update(red=cols[:, 0], green=cols[:, 1], blue=cols[:, 2])
+    write_ply(path, props)
+
+
 def save_gaussians_ply(path, g, include_feature: bool = True) -> None:
     """reference gaussian_model.py:303-325 attribute layout. Only alive
     slots are exported (the reference has no dead slots)."""

@@ -25,6 +25,7 @@ import torch
 from sdpgs_torch import default_device
 from sdpgs_torch.config import TrainConfig
 from sdpgs_torch.core.camera import Camera
+from sdpgs_torch.data.scene import Scene
 from sdpgs_torch.losses import psnr as psnr_fn
 from sdpgs_torch.losses import reproject_fused_depth_batch
 from sdpgs_torch.losses import ssim as ssim_fn
@@ -81,8 +82,10 @@ def build_view_batch(cams, indices, device=None) -> ViewBatch:
 
 class Trainer:
     """Trains ``scene.gaussians`` (a copy: the scene keeps its cloud) on
-    ``device`` (``cuda`` unless the caller asks for another). The scene is
-    any object with the attributes of ``data.synthetic.SyntheticScene``.
+    ``device`` (``cuda`` unless the caller asks for another). Without a
+    scene it loads ``data.scene.Scene(cfg)`` from ``cfg.model.source_path``;
+    any object with the attributes of ``data.synthetic.SyntheticScene``
+    serves as well.
     ``mono_depth_fn`` is a ``models.depth_estimator.MonoDepth`` or any
     callable ([3, H, W] image -> [H, W] inverse depth); without one,
     ``cfg.model.dpt_weights`` names a converted DPT checkpoint, and without
@@ -96,15 +99,10 @@ class Trainer:
         if cfg.mesh_data * cfg.mesh_gauss * cfg.mesh_tile > 1:
             raise NotImplementedError(
                 "mesh_data/mesh_gauss/mesh_tile > 1: multi-card training comes with the "
-                "parallelism slice (ROADMAP.md queue A, item 13)")
-        if scene is None:
-            raise NotImplementedError(
-                "a Trainer without a scene loads a dataset: Scene comes with the data slice "
-                "(ROADMAP.md queue A, item 11); pass data.synthetic.SyntheticScene or another "
-                "in-memory scene")
+                "parallelism slice (ROADMAP.md A5)")
         self.device = dev = default_device(device)
         self.cfg = cfg
-        self.scene = scene
+        self.scene = scene = Scene(cfg, device=dev) if scene is None else scene
         if mono_depth_fn is None and cfg.model.dpt_weights:
             from sdpgs_torch.models.depth_estimator import make_mono_depth_fn
 

@@ -215,7 +215,7 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
     if tile_mesh is not None or out_shardings is not None:
         raise NotImplementedError(
             "tile_mesh / out_shardings: multi-card training comes with the parallelism "
-            "slice (ROADMAP.md queue A, item 13)")
+            "slice (ROADMAP.md A5)")
 
     def step(state: TrainState, batch: ViewBatch, prototypes, bg, spatial_lr_scale,
              pseudo: Optional[PseudoInputs] = None, device=None):

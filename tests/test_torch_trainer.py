@@ -320,7 +320,8 @@ def test_depth_net_from_cfg_weights(tmp_path):
 def test_trainer_refuses_what_later_slices_bring():
     with pytest.raises(NotImplementedError, match="parallelism"):
         tloop.Trainer(tconfig.TrainConfig(mesh_data=2), scene=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="data slice"):
+    # without a scene the Trainer loads one from cfg.model.source_path
+    with pytest.raises(ValueError, match="could not recognize scene type"):
         tloop.Trainer(tconfig.TrainConfig(), device="cpu")
 
 
