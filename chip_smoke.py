@@ -75,7 +75,21 @@ points, clouds, images and weights made from a seed:
   must launch once per plain iteration and twice per pseudo one (K1-K3
   also once per eval view), K6 once, nothing else; the train L1 must fall
   from 100 to 300 and the model directory hold its files; a second ``main``
-  resumes from the checkpoint for iterations 301-310.
+  resumes from the checkpoint for iterations 301-310;
+- evaluate and prepare, on that tree and model directory:
+  ``python -m sdpgs_torch.cli.render_cli -m <model> --spiral``'s ``main``
+  renders the 3 train, 3 test and 180 spiral views (K1-K3 once per view and
+  nothing else; two test views at least 50 dB against ``render_set`` on the
+  CPU; no spiral frame black); ``metrics_cli.main`` scores them with a
+  random full-width LPIPS-VGG16 .npz (LPIPS on two 504x378 pairs within
+  1e-4 of the CPU's, PSNR 1e-5 relative, SSIM 1e-5 absolute); the depth
+  prior's ``conclude_depth_for_scene`` fits the known per-segment lines of
+  the train views to 1e-3 through the native I/O library (built with g++
+  from native/sdpgs_io.cc, equal to its Python versions); ``fuse_depths``
+  on the card equals the CPU's (masks but at threshold pixels, points to
+  1e-4) and round-trips a fused PLY; the SIBR viewer serves 10 frames over
+  loopback, each equal to ``render``'s bytes; a ``utils/profiling.trace``
+  names K1-K3's kernels.
 
 It then times each kernel, its plain version, a render, a train step, a
 pseudo step (and the prefetch's K6, fusion and rest) and the Trainer's
@@ -212,6 +226,12 @@ CLI_RESUME = 10
 CLI_OPTIM = dict(densify_from_iter=50, densification_interval=100, densify_until_iter=250,
                  proximity_until_iter=150, start_sample_pseudo=30, end_sample_pseudo=91)
 SCENE_TOL = 1e-6              # Scene card vs CPU: Gaussians within this of each field's max
+# The evaluate-and-prepare phase, on the train CLI's tree and model directory.
+LPIPS_RTOL = 1e-4             # LPIPS-VGG16 card vs CPU, relative, per 504x378 pair
+METRIC_TOL = 1e-5             # PSNR card vs CPU relative, SSIM absolute
+LINE_TOL = 1e-3               # conclude's per-segment lines against the known (a, b)
+POINT_TOL = 1e-4              # fused points card vs CPU, over the largest coordinate
+VIEWER_FRAMES = 10            # SIBR requests served over loopback
 
 
 def card_line() -> str:
@@ -2084,6 +2104,450 @@ def cli_phase(dev, raw, work: Path) -> dict:
     return dict(launches=launches, it_ms=it_ms, wall=wall, load_s=scene["load_s"])
 
 
+def random_lpips_npz(path: Path, seed: int = 0) -> None:
+    """Random VGG16 + LPIPS heads in tools/convert_lpips.py's .npz layout
+    (the layout tests/test_lpips.py writes; about 59 MB)."""
+    from sdpgs_torch.models.lpips import VGG16_STAGES
+
+    rng = np.random.default_rng(seed)
+    params, in_ch = {}, 3
+    for s, (ch, n_convs) in enumerate(VGG16_STAGES):
+        for i in range(n_convs):
+            params[f"conv{s}_{i}_w"] = rng.normal(0, 0.05, (ch, in_ch, 3, 3)).astype(np.float32)
+            params[f"conv{s}_{i}_b"] = rng.normal(0, 0.01, (ch,)).astype(np.float32)
+            in_ch = ch
+        params[f"lin{s}_w"] = rng.uniform(0, 0.1, (1, ch, 1, 1)).astype(np.float32)
+    np.savez(path, **params)
+
+
+def png_psnr(a: Path, b: Path) -> float:
+    from PIL import Image
+
+    x, y = (np.asarray(Image.open(f), np.float64) / 255.0 for f in (a, b))
+    return 10.0 * math.log10(1.0 / max(float(((x - y) ** 2).mean()), 1e-20))
+
+
+def render_cli_check(dev, model: Path, scene, rscene, bg, load_s: float, timer) -> dict:
+    """``render_cli.main -m <model> --spiral`` on the card: K1-K3 once per
+    train, test and spiral view and nothing else; two test views against
+    ``render_set`` on the CPU from the same PLY; no spiral frame black.
+    ``load_s``: what the CLI's Scene and RenderScene loads took when built
+    the same way beforehand."""
+    from PIL import Image
+
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.cli import render_cli
+    from sdpgs_torch.data.ply import load_gaussians_ply
+    from sdpgs_torch.render import render
+
+    cfg, it = scene.cfg, rscene.loaded_iter
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    with timer.section("render CLI", bg):
+        t0 = time.perf_counter()
+        render_cli.main(["-m", str(model), "--spiral"], device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    spiral = sorted((model / "video_spiral" / f"ours_{it}").glob("*.png"))
+    n_views = len(scene.train_cameras) + len(scene.test_cameras) + len(spiral)
+    means = [float(np.asarray(Image.open(f)).mean()) / 255.0 for f in spiral]
+    # the same views rendered bare: no PNG or NPY writes
+    cams = [c.camera for c in scene.train_cameras + scene.test_cameras]
+    cams += [c.camera for c in rscene.render_cameras]
+    with torch.no_grad():
+        render(cams[0], scene.gaussians, cfg.raster, bg, cfg.model.sh_degree, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for cam in cams:
+            render(cam, scene.gaussians, cfg.raster, bg, cfg.model.sh_degree, device=dev)
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+    # two test views through render_set on the CPU, from the same PLY
+    ply = model / "point_cloud" / f"iteration_{it}" / "point_cloud.ply"
+    g_cpu = load_gaussians_ply(ply, cfg.model.capacity, cfg.model.sh_degree, device="cpu")
+    render_cli.render_set(model / "cpu_check", "test", it, scene.test_cameras[:2], g_cpu,
+                          cfg.raster, bg.cpu(), cfg.model.sh_degree, device="cpu")
+    psnrs = [png_psnr(model / "test" / f"ours_{it}" / "renders" / f"{i:05d}.png",
+                      model / "cpu_check" / "test" / f"ours_{it}" / "renders" / f"{i:05d}.png")
+             for i in range(2)]
+    card = card_line()
+    print(f"render CLI (python -m sdpgs_torch.cli.render_cli -m <model> --spiral, iteration "
+          f"{it}): {len(scene.train_cameras)} train + {len(scene.test_cameras)} test + "
+          f"{len(spiral)} spiral views in {cli_s:.2f} s with its Scene loads and PNG/NPY writes "
+          f"({cli_s / n_views * 1e3:.1f} ms per view; the loads take {load_s:.2f} s, so "
+          f"{(cli_s - load_s) / n_views * 1e3:.1f} ms per view render and write); the same views "
+          f"bare "
+          f"{bare_s / len(cams) * 1e3:.2f} ms per view ({card}); launches {launches}; plain "
+          f"calls {plain}; two test views card vs render_set on the CPU "
+          f"{[f'{p:.1f}' for p in psnrs]} dB; spiral frame means {min(means):.4f}-"
+          f"{max(means):.4f}")
+    require(all(launches[k] == n_views for k in _kernels.FORWARD_KERNELS),
+            f"render CLI: K1-K3 did not launch once per view ({n_views})")
+    require(not any(launches[k] for k in _kernels.KERNELS if k not in _kernels.FORWARD_KERNELS)
+            and not any(plain.values()), "render CLI: another kernel or a plain version ran")
+    require(len(spiral) == 180 and len(rscene.render_cameras) == 180,
+            "render CLI: not 180 spiral frames")
+    require(min(psnrs) >= 50.0, f"render CLI: a test view differs from the CPU's: {psnrs} dB")
+    require(min(means) > 1e-3, "render CLI: a spiral frame is black")
+    return dict(cli_s=cli_s, n_views=n_views, bare_ms=bare_s / len(cams) * 1e3,
+                write_ms=(cli_s - load_s) / n_views * 1e3, launches=launches)
+
+
+def metrics_cli_check(dev, model: Path, work: Path, it: int, timer) -> dict:
+    """``metrics_cli.main -m <model> --lpips_weights <npz>`` on the card
+    (a random full-width VGG16), then LPIPS on two 504x378 test pairs and
+    PSNR and SSIM on every test view, on the card against the CPU."""
+    from sdpgs_torch.cli import metrics_cli
+    from sdpgs_torch.eval.metrics import evaluate_dirs, load_image
+    from sdpgs_torch.models.lpips import LPIPS
+
+    npz = work / "lpips_vgg16_random.npz"
+    random_lpips_npz(npz)
+    with timer.section("metrics CLI", torch.zeros(1, device=dev)):
+        t0 = time.perf_counter()
+        metrics_cli.main(["-m", str(model), "--lpips_weights", str(npz)], device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    results = json.loads((model / "results.json").read_text())[f"ours_{it}"]
+    base = model / "test" / f"ours_{it}"
+    names = sorted(p.name for p in (base / "renders").iterdir())[:2]
+    nets = {d: LPIPS.load(npz, device=d) for d in (dev, torch.device("cpu"))}
+    lp_err, pairs = 0.0, []
+    for name in names:
+        img, gt = (torch.from_numpy(load_image(base / d / name)) for d in ("renders", "gt"))
+        card = float(nets[dev](img.to(dev), gt.to(dev)))
+        cpu = float(nets[torch.device("cpu")](img, gt))
+        lp_err = max(lp_err, abs(card - cpu) / max(abs(cpu), 1e-30))
+        pairs.append((img.to(dev), gt.to(dev), card, cpu))
+    img, gt = pairs[0][:2]
+    lpips_ms = cuda_ms(lambda: nets[dev](img, gt))
+    shape = tuple(img.shape)
+    on_card = evaluate_dirs(base / "renders", base / "gt", device=dev)["per_view"]
+    on_cpu = evaluate_dirs(base / "renders", base / "gt", device="cpu")["per_view"]
+    # PSNR relative; SSIM, a score in [-1, 1] that is a mean of terms of
+    # both signs, absolute
+    psnr_err = max(abs(on_card["PSNR"][n] - v) / v for n, v in on_cpu["PSNR"].items())
+    ssim_err = max(abs(on_card["SSIM"][n] - v) for n, v in on_cpu["SSIM"].items())
+    print(f"metrics CLI (python -m sdpgs_torch.cli.metrics_cli -m <model> --lpips_weights "
+          f"<random VGG16 .npz>): {cli_s:.2f} s for {len(list((base / 'renders').iterdir()))} "
+          f"test views with the .npz load; {results}; LPIPS per {shape[2]}x{shape[1]} pair "
+          f"{lpips_ms:.3f} ms (CUDA events, median of {REPS}; {card_line()}); card vs CPU: "
+          f"LPIPS {[f'{c:.6f} / {p:.6f}' for _, _, c, p in pairs]} max rel {lp_err:.2e} (limit "
+          f"{LPIPS_RTOL:g}), PSNR max rel {psnr_err:.2e}, SSIM max abs {ssim_err:.2e} (limit "
+          f"{METRIC_TOL:g} each); "
+          f"cudnn.deterministic {torch.backends.cudnn.deterministic}")
+    require(results["LPIPS"] is not None and results["AVGE"] is not None,
+            "metrics CLI: results.json has no LPIPS")
+    require(lp_err <= LPIPS_RTOL, f"LPIPS card vs CPU {lp_err:.2e}")
+    require(psnr_err <= METRIC_TOL and ssim_err <= METRIC_TOL,
+            f"PSNR/SSIM card vs CPU {psnr_err:.2e}, {ssim_err:.2e}")
+    return dict(cli_s=cli_s, lpips_ms=lpips_ms)
+
+
+def depth_prior_inputs(tree: Path, scene, rng) -> dict:
+    """Mono PFMs and sparse stereo depths whose alignment is known, for the
+    train views: in segment s the stereo depth is a_s * mono + b_s, where
+    mono is the tree's rendered depth D through (D - b_s) / a_s, written
+    inverted (C - mono) as a mono net's disparity-like output; the stereo
+    samples are D at the pixels nearest the COLMAP points' projections, a
+    tenth of them pushed 3-6 further as outliers. conclude re-inverts with
+    max - mono, which shifts mono by its minimum m: the expected line is
+    (a_s, b_s + a_s * m)."""
+    from sdpgs_torch import native
+    from sdpgs_torch.data.readers import write_pfm
+
+    xyz = native.read_points3d(tree / "sparse" / "0" / "points3D.bin")[0]
+    ab = np.stack([rng.uniform(0.5, 2.0, PROTOTYPES), rng.uniform(-1.0, 1.0, PROTOTYPES)], 1)
+    for d in ("depth_maps_anything", "stereo_depth"):
+        (tree / d).mkdir(exist_ok=True)
+    views = {}
+    for cam in scene.train_cameras:
+        stem = cam.image_name.split(".")[0]
+        D = np.load(tree / "depth_adjust_maps_stereo" / f"depth_{stem}.npy").astype(np.float64)
+        seg = np.load(tree / "language_features_GGrouping_dim3" / f"{stem}_s.npy")
+        seg = (seg[0] if seg.ndim == 3 else seg).astype(np.int32)
+        mono = ((D - ab[seg, 1]) / ab[seg, 0]).astype(np.float32)
+        write_pfm(tree / "depth_maps_anything" / f"depth_{stem}.pfm", 10.0 - mono)
+        K = cam.intrinsics().astype(np.float64)
+        pc = xyz + cam.T                             # identity rotations: world + T
+        front = pc[:, 2] > 0
+        u = np.rint(K[0, 0] * pc[front, 0] / pc[front, 2] + (cam.width - 1) / 2).astype(int)
+        v = np.rint(K[1, 1] * pc[front, 1] / pc[front, 2] + (cam.height - 1) / 2).astype(int)
+        inside = (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
+        u, v = u[inside], v[inside]
+        stereo = np.zeros(D.shape, np.float32)
+        stereo[v, u] = D[v, u]
+        hit = np.flatnonzero(stereo.reshape(-1) > 0)
+        bad = rng.choice(hit, len(hit) // 10, replace=False)
+        stereo.reshape(-1)[bad] += rng.uniform(3.0, 6.0, len(bad)).astype(np.float32)
+        np.save(tree / "stereo_depth" / f"depth_{stem}.npy", stereo)
+        m = float(np.float32(10.0) - (10.0 - mono).max())   # conclude's shift, in f32
+        views[stem] = dict(mono=mono, stereo=stereo, seg=seg, shift=m, K=K, R=cam.R, T=cam.T,
+                           image=cam.image.transpose(1, 2, 0).astype(np.float32))
+    return dict(views=views, ab=ab)
+
+
+def depth_prior_check(tree: Path, scene, timer) -> dict:
+    """conclude_depth_for_scene over the train views: every segment fitted
+    from >= 20 samples must come back to its known line; the native library
+    must have run, equal to the Python versions."""
+    from sdpgs_torch import native
+    from sdpgs_torch.data.ply import read_pointcloud_ply
+    from sdpgs_torch.pipelines import depth_align, fusion
+
+    inputs = depth_prior_inputs(tree, scene, np.random.default_rng(9))
+    views, ab = inputs["views"], inputs["ab"]
+    with timer.section("conclude"):
+        t0 = time.perf_counter()
+        depth_align.conclude_depth_for_scene(tree, seg_dir="language_features_GGrouping_dim3",
+                                             out_dir="depth_adjust_anything", diagnostics=True)
+        conclude_s = time.perf_counter() - t0
+    worst, fitted, inherited = 0.0, 0, 0
+    for stem, v in views.items():
+        adjusted = np.load(tree / "depth_adjust_anything" / f"depth_{stem}.npy")
+        require(adjusted.shape == v["mono"].shape and np.isfinite(adjusted).all(),
+                f"conclude: {stem}'s adjusted depth misshapen or not finite")
+        with np.load(tree / "depth_adjust_anything" / f"depth_{stem}_diag.npz") as diag:
+            line_of = {int(sid): diag[f"line{i}_ab"] for i in range(int(diag["n_lines"]))
+                       for sid in diag[f"line{i}_segments"]}
+        counts = np.bincount(v["seg"][v["stereo"] > 0], minlength=PROTOTYPES)
+        for sid, (a, b) in line_of.items():
+            if counts[sid] < 20:
+                inherited += 1
+                continue
+            fitted += 1
+            a_s, b_s = ab[sid, 0], ab[sid, 1] + ab[sid, 0] * v["shift"]
+            worst = max(worst, abs(a - a_s) / a_s, abs(b - b_s) / max(abs(b_s), 1.0))
+    labels_n, n_n = native.connected_components(views[next(iter(views))]["seg"] == 0)
+    labels_p, n_p = depth_align._connected_components(views[next(iter(views))]["seg"] == 0)
+    pts, cols, _ = read_pointcloud_ply(tree / "3_views" / "dense" / "fused.ply")
+    vn = native.voxel_downsample(pts, cols, 0.05)
+    vp = fusion.voxel_downsample(pts, cols, 0.05)
+    voxel_err = max(float(np.abs(np.sort(a, 0) - np.sort(b, 0)).max()) for a, b in zip(vn, vp))
+    print(f"depth prior (conclude_depth_for_scene, {len(views)} train views at "
+          f"{views[next(iter(views))]['mono'].shape[::-1]}): {conclude_s / len(views):.3f} s per "
+          f"view on the host; {fitted} segment lines fitted (max rel error {worst:.2e}, limit "
+          f"{LINE_TOL:g}), {inherited} inherited; native library {native.available()} "
+          f"({native.BUILD_LOG.strip()}): connected components {n_n} = Python {n_p}, labels "
+          f"equal {np.array_equal(labels_n, labels_p)}; voxel downsample of {len(pts)} points "
+          f"to {len(vn[0])} (Python {len(vp[0])}), max |diff| {voxel_err:.1e}")
+    require(native.available(), f"the native library did not build: {native.BUILD_LOG}")
+    require(fitted >= 8 and worst <= LINE_TOL, f"conclude: lines off by {worst:.2e}")
+    require(n_n == n_p and np.array_equal(labels_n, labels_p),
+            "native connected components differ from the Python version")
+    require(len(vn[0]) == len(vp[0]) and voxel_err <= 1e-5,
+            "native voxel downsample differs from the Python version")
+    return dict(views=views, conclude_s=conclude_s / len(views))
+
+
+def fusion_check(dev, views: dict, tree: Path, timer) -> dict:
+    """fuse_depths on the card and on the CPU: each pair's masks equal but
+    at pixels within 1e-5 relative of a threshold, the points to 1e-4; the
+    cloud through fused.ply and back."""
+    from sdpgs_torch.data.ply import read_pointcloud_ply, write_pointcloud_ply
+    from sdpgs_torch.pipelines import fusion
+    from sdpgs_torch.pipelines.depth_align import compute_scale_and_shift
+
+    vs = list(views.values())
+    args = ([v["mono"] for v in vs], [v["stereo"] for v in vs], [v["K"] for v in vs],
+            [v["R"].T for v in vs], [np.asarray(v["T"], np.float64) for v in vs])
+    aligned = []
+    for mono, sparse in zip(args[0], args[1]):
+        a, b = compute_scale_and_shift(mono[sparse > 0], sparse[sparse > 0])
+        aligned.append(np.asarray(a * mono + b, np.float32))
+    flips, away, pair_ms = 0, 0, []
+    for r in range(len(vs)):
+        for s in range(len(vs)):
+            if r == s:
+                continue
+            cams = [(args[2][i], args[3][i], args[4][i]) for i in (r, s)]
+            out = {}
+            for d in (dev, torch.device("cpu")):
+                dr, ds = (torch.as_tensor(aligned[i], device=d) for i in (r, s))
+                out[d.type] = [t.cpu().numpy() for t in fusion.check_geometric_consistency(
+                    dr, *cams[0], ds, *cams[1])]
+                rep = fusion.reproject_with_depth(dr, *cams[0], ds, *cams[1])
+                out[d.type + "_rep"] = [t.cpu().numpy() for t in rep]
+            dr, ds = (torch.as_tensor(aligned[i], device=dev) for i in (r, s))
+            pair_ms.append(cuda_ms(lambda: fusion.check_geometric_consistency(
+                dr, *cams[0], ds, *cams[1])))
+            H, W = aligned[r].shape
+            ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+            rep = out["cpu_rep"]
+            dist = np.sqrt((rep[1] - xs) ** 2 + (rep[2] - ys) ** 2)
+            rel = np.abs(rep[0] - aligned[r]) / np.maximum(aligned[r], 1e-8)
+            differ = out[dev.type][0] != out["cpu"][0]
+            at_thresh = (np.abs(dist - 5.0) <= 5e-5) | (np.abs(rel - 0.2) <= 2e-6)
+            flips += int(differ.sum())
+            away += int((differ & ~at_thresh).sum())
+    with timer.section("fusion", torch.zeros(1, device=dev)):
+        t0 = time.perf_counter()
+        pts, cols = fusion.fuse_depths(*args, colors=[v["image"] for v in vs], device=dev)
+        fuse_s = time.perf_counter() - t0
+    cpu_pts, cpu_cols = fusion.fuse_depths(*args, colors=[v["image"] for v in vs], device="cpu")
+    same_n = pts.shape == cpu_pts.shape
+    pt_err = float(np.abs(pts - cpu_pts).max() / np.abs(cpu_pts).max()) if same_n else math.inf
+    ply = tree / "3_views" / "dense" / "fused_prior.ply"
+    write_pointcloud_ply(ply, pts, cols)
+    back, back_cols, _ = read_pointcloud_ply(ply)
+    print(f"fusion (fuse_depths, {len(vs)} views, {len(pair_ms)} (ref, src) pairs at "
+          f"{W}x{H}): the consistency check {statistics.median(pair_ms):.3f} ms per pair on the "
+          f"card (CUDA events, median of {REPS}, {card_line()}); fuse_depths {fuse_s:.3f} s "
+          f"with the host back-projection; {len(pts)} points (CPU {len(cpu_pts)}), max |diff| / "
+          f"max |p| {pt_err:.1e} (limit {POINT_TOL:g}); masks card vs CPU differ at {flips} "
+          f"pixels, {away} of them away from a threshold; fused.ply round trip "
+          f"{np.array_equal(back, pts)}")
+    require(away == 0, f"fusion: {away} mask pixels differ away from a threshold")
+    require(len(pts) > len(vs) * H * W // 10 and (pt_err <= POINT_TOL if flips == 0
+                                   else abs(len(pts) - len(cpu_pts)) <= flips),
+            f"fusion: the card's points differ from the CPU's ({pt_err:.2e})")
+    require(np.array_equal(back, pts) and np.abs(back_cols - cols).max() <= 1 / 255 + 1e-6,
+            "fusion: fused.ply did not read back")
+    return dict(pair_ms=statistics.median(pair_ms), fuse_s=fuse_s)
+
+
+def viewer_check(dev, scene, bg, timer) -> dict:
+    """GuiServer on a loopback port: a client sends SIBR messages for a
+    train camera (transposed view matrix, y and z columns negated); the
+    server renders each on the card and replies; the bytes must equal the
+    uint8 frame of ``render`` for the camera built directly."""
+    import socket
+    import threading
+
+    from sdpgs_torch.core.camera import Camera
+    from sdpgs_torch.render import render
+    from sdpgs_torch.viewer import GuiServer
+
+    cfg, cam = scene.cfg, scene.train_cameras[0]
+    W, H = cam.width, cam.height
+    vm = cam.camera.view.numpy().T.copy()
+    vm[:, 1] *= -1
+    vm[:, 2] *= -1
+    msg = json.dumps({"resolution_x": W, "resolution_y": H, "train": False, "keep_alive": True,
+                      "scaling_modifier": 1.0, "fov_x": float(cam.fovx),
+                      "fov_y": float(cam.fovy),
+                      "z_near": 0.01, "z_far": 100.0, "view_matrix": vm.flatten().tolist(),
+                      "view_projection_matrix": np.eye(4).flatten().tolist()}).encode()
+    frames = VIEWER_FRAMES
+    got: list = []
+
+    def client(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as c:
+            for _ in range(frames):
+                c.sendall(len(msg).to_bytes(4, "little") + msg)
+                buf = b""
+                while len(buf) < W * H * 3 + 4:
+                    chunk = c.recv(W * H * 3 + 4 - len(buf))
+                    if not chunk:
+                        return
+                    buf += chunk
+                n = int.from_bytes(buf[-4:], "little")
+                verify = b""
+                while len(verify) < n:
+                    verify += c.recv(n - len(verify))
+                got.append((buf[:-4], verify.decode()))
+
+    server = GuiServer(port=0)
+    t = threading.Thread(target=client, args=(server.listener.getsockname()[1],), daemon=True)
+    t.start()
+    times = []
+    try:
+        deadline = time.monotonic() + 60
+        while not server.try_connect():
+            require(time.monotonic() < deadline, "viewer: no client connected")
+            time.sleep(0.01)
+        with timer.section("viewer", bg):
+            for _ in range(frames):
+                t0 = time.perf_counter()
+                rcam, _ = server.receive()
+                with torch.no_grad():
+                    img = render(rcam, scene.gaussians, cfg.raster, bg, cfg.model.sh_degree,
+                                 device=dev).color
+                server.send(img.cpu().numpy(), "llff_fern")
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        t.join(timeout=60)
+        server.drop()
+        server.listener.close()
+    direct = Camera.create(R=cam.R, T=cam.T, fovx=cam.fovx, fovy=cam.fovy, width=W, height=H,
+                           device="cpu")
+    with torch.no_grad():
+        ref = render(direct, scene.gaussians, cfg.raster, bg, cfg.model.sh_degree,
+                     device=dev).color.cpu().numpy()
+    ref_bytes = (np.clip(ref, 0, 1) * 255).astype(np.uint8).tobytes()
+    print(f"viewer (GuiServer, SIBR protocol over loopback, {W}x{H}): {len(got)} frames, "
+          f"{statistics.median(times):.2f} ms per frame (receive, render on the card, reply; "
+          f"median; {card_line()}); bytes equal to render of the camera built directly "
+          f"{all(b == ref_bytes for b, _ in got)}; camera on {rcam.view.device}")
+    require(not t.is_alive() and len(got) == frames, "viewer: the client did not get every frame")
+    require(all(b == ref_bytes and v == "llff_fern" for b, v in got),
+            "viewer: the frame differs from render of the camera built directly")
+    return dict(frame_ms=statistics.median(times))
+
+
+def profiling_check(dev, scene, bg, work: Path) -> None:
+    """``utils/profiling.trace`` around the renders of the train views: a
+    Chrome trace that names K1-K3's kernels. The counts are printed
+    beside the launches (the profiler may miss launches just after it
+    starts: one chip run's trace of a single render lacked K1)."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.render import render
+    from sdpgs_torch.utils.profiling import trace
+
+    cfg = scene.cfg
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    with trace(work / "profile") as path:
+        with torch.no_grad():
+            for cam in scene.train_cameras:
+                render(cam.camera, scene.gaussians, cfg.raster, bg, cfg.model.sh_degree,
+                       device=dev)
+        torch.cuda.synchronize()
+    launched = {k: _kernels.LAUNCHES[k] for k in _kernels.FORWARD_KERNELS}
+    text = path.read_text() if path.exists() else ""
+    names = ("preprocess_fwd_kernel", "cover_words_kernel", "bin_table_kernel",
+             "composite_fwd_kernel")
+    events = {}
+    if text:
+        for e in json.loads(text)["traceEvents"]:
+            for n in names:
+                events[n] = events.get(n, 0) + (n in str(e.get("name", "")))
+    print(f"profiling: trace {path.name} ({len(text)} bytes) over {len(scene.train_cameras)} "
+          f"renders (launches {launched}): kernel events by name {events}")
+    require(all(events.get(n, 0) > 0 for n in names),
+            f"profiling: the trace lacks a kernel: {events}")
+
+
+def evaluate_phase(dev, tree: Path, model: Path, work: Path) -> dict:
+    """Evaluate and prepare, on the train CLI's tree and model directory:
+    the render CLI, the metrics CLI (LPIPS-VGG16), the depth prior's
+    conclude, fusion, the viewer and a profiler trace."""
+    from sdpgs_torch.config import load_config
+    from sdpgs_torch.data.scene import RenderScene, Scene
+    from sdpgs_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    cfg = load_config(model / "cfg.json")
+    t0 = time.perf_counter()
+    rscene = RenderScene(cfg, device=dev)
+    scene = Scene(cfg, load_iteration=rscene.loaded_iter, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, device=dev)
+    timer = StepTimer()
+    rendered = render_cli_check(dev, model, scene, rscene, bg, load_s, timer)
+    metrics = metrics_cli_check(dev, model, work, rscene.loaded_iter, timer)
+    prior = depth_prior_check(tree, scene, timer)
+    fused = fusion_check(dev, prior["views"], tree, timer)
+    viewer = viewer_check(dev, scene, bg, timer)
+    profiling_check(dev, scene, bg, work)
+    wall = time.perf_counter() - t_phase
+    print(f"evaluate and prepare: {wall:.1f} s ({card_line()}); StepTimer: {timer.report()}")
+    return dict(rendered=rendered, metrics=metrics, prior=prior, fused=fused, viewer=viewer,
+                wall=wall)
+
+
 def k1_k4_times(k1_args, k4_args) -> tuple:
     """K1's and K4's own times: the bare launchers with the camera vector
     on the host (they pass it to the kernel by value, so no copy to the
@@ -2251,7 +2715,11 @@ def drive(dev: torch.device, work: Path) -> int:
     # -- 11. the train CLI on an LLFF tree from disk -------------------------
     cli = cli_phase(dev, dnet["raw"], work)
 
-    # -- 12. kernel timings and bounds --------------------------------------
+    # -- 12. evaluate and prepare: the render and metrics CLIs on the CLI's
+    # model, the depth prior and fusion on its tree, the viewer, a trace ----
+    evaluation = evaluate_phase(dev, work / "llff_fern", work / "llff_fern_out", work)
+
+    # -- 13. kernel timings and bounds --------------------------------------
     k1_args, k2_args, k3_args = (main_check[k] for k in ("k1_args", "k2_args", "k3_args"))
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
@@ -2354,6 +2822,10 @@ def drive(dev: torch.device, work: Path) -> int:
     print(f"  bytes counted: K2 {k2_bytes} (n_valid {main_check['n_valid']}), K3 {k3_bytes}, "
           f"K5 {k5_bytes} ({main_check['entries']} table entries listed, "
           f"{main_check['rows_read']} payload rows they reference)")
+    ev = evaluation["rendered"]
+    print(f"  K1-K3 on the evaluation path (render CLI, {ev['n_views']} views): launches "
+          f"{ {k: ev['launches'][k] for k in _kernels.FORWARD_KERNELS} }; the viewer launches "
+          f"each once per frame ({VIEWER_FRAMES} frames, and once for its check)")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

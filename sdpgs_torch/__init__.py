@@ -4,7 +4,7 @@ The PyTorch counterpart of ``sdpgs_tpu``: module names mirror that package
 so each function's reference is easy to find. It imports neither JAX nor
 anything of ``sdpgs_tpu``.
 
-So far the port covers four paths. Serving: load a trained cloud from a
+So far the port covers these paths. Serving: load a trained cloud from a
 PLY, render views (preprocess + SH, tile binning, compositing) and write
 them out (``cli/render_cli.render_set``). Training: the plain train step
 (``train/step.make_train_step``), one combined loss, one backward and one
@@ -19,7 +19,12 @@ schedule with densify and prune (``opt/densify.py``, the k-NN of
 checkpoints, on a dataset loaded from disk (``data/scene.Scene``: COLMAP,
 Blender and mip-NeRF-360 trees) or an in-memory
 ``data/synthetic.SyntheticScene``; ``python -m sdpgs_torch.cli.train_cli
--s <scene> -m <out>`` drives it with the JAX package's flags. Eight
+-s <scene> -m <out>`` drives it with the JAX package's flags. Evaluation:
+``cli/render_cli`` and ``cli/metrics_cli`` (PSNR, SSIM, LPIPS-VGG16 of
+``models/lpips.py``). The depth prior: ``pipelines/`` (segment-wise depth
+alignment, multi-view fusion, the MVS and COLMAP helpers) over the
+``native/`` I/O library; ``viewer/`` serves SIBR's remote viewer and
+``utils/profiling`` traces. Eight
 kernels in ``csrc/`` carry them on the card: three forward (preprocess,
 binning, compositing), two backward (preprocess, compositing), the
 reprojection z-buffer, and two that serve their own entry points, the

@@ -56,6 +56,15 @@ def covariance_to_symm6(cov: torch.Tensor) -> torch.Tensor:
     )
 
 
+def symm6_to_covariance(sym: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`covariance_to_symm6`."""
+    xx, xy, xz, yy, yz, zz = (sym[..., i] for i in range(6))
+    row0 = torch.stack([xx, xy, xz], dim=-1)
+    row1 = torch.stack([xy, yy, yz], dim=-1)
+    row2 = torch.stack([xz, yz, zz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     """Logit; reference/utils/general_utils.py:18."""
     return torch.log(x / (1.0 - x))

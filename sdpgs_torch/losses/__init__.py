@@ -3,9 +3,15 @@
 from sdpgs_torch.losses.basic import (  # noqa: F401
     l1_loss,
     l1_loss_mask,
+    l2_loss,
+    margin_l2_loss,
+    normalize_rows,
+    patch_norm_mse_loss,
+    patchify,
     pearson_corrcoef,
     psnr,
     ssim,
+    ssim_skimage,
 )
 from sdpgs_torch.losses.depth import (  # noqa: F401
     depth_pearson_loss,

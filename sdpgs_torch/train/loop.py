@@ -115,7 +115,7 @@ class Trainer:
 
         from sdpgs_torch.eval.metrics import make_lpips_fn
 
-        self.lpips_fn = make_lpips_fn(cfg.model.lpips_weights or None)
+        self.lpips_fn = make_lpips_fn(cfg.model.lpips_weights or None, device=dev)
         self.eval_history: list = []
         self.bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, device=dev)
         self.prototypes = torch.as_tensor(np.asarray(scene.prototypes, np.float32), device=dev)

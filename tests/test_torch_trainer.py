@@ -325,10 +325,16 @@ def test_trainer_refuses_what_later_slices_bring():
         tloop.Trainer(tconfig.TrainConfig(), device="cpu")
 
 
-def test_make_lpips_fn():
+def test_make_lpips_fn(tmp_path):
+    """No weights: None for every pair. Weights: the LPIPS network on the
+    device asked for (it used to raise until the network was ported)."""
     from sdpgs_torch.eval.metrics import make_lpips_fn
+    from test_lpips import random_lpips_params
 
-    assert make_lpips_fn(None)(torch.zeros(3, 4, 4), torch.zeros(3, 4, 4)) is None
-    assert make_lpips_fn("/nonexistent/lpips.npz")(None, None) is None
-    with pytest.raises(NotImplementedError, match="eval slice"):
-        make_lpips_fn(__file__)
+    zeros = torch.zeros(3, 4, 4)
+    assert make_lpips_fn(None, device="cpu")(zeros, zeros) is None
+    assert make_lpips_fn("/nonexistent/lpips.npz", device="cpu")(None, None) is None
+    np.savez(tmp_path / "lpips.npz", **random_lpips_params(np.random.default_rng(0)))
+    fn = make_lpips_fn(str(tmp_path / "lpips.npz"), device="cpu")
+    a, b = torch.rand(3, 16, 16), torch.rand(3, 16, 16)
+    assert fn(a, a) == 0.0 and fn(a, b) > 0.0
