@@ -89,7 +89,27 @@ points, clouds, images and weights made from a seed:
   on the card equals the CPU's (masks but at threshold pixels, points to
   1e-4) and round-trips a fused PLY; the SIBR viewer serves 10 frames over
   loopback, each equal to ``render``'s bytes; a ``utils/profiling.trace``
-  names K1-K3's kernels.
+  names K1-K3's kernels;
+- multi-card training (``parallel/``): K2, K3 and K5 with a tile offset on
+  the main scene for 1, 2, 3, 4 and 7 tile shards (K2's rows, counts and
+  overflow bit-identical to the whole table's and to its plain version at
+  the same offset, rows past the grid empty; K3's rows bit-identical to the
+  whole render's, its walk gate on every shard; K5's shard sum within
+  1e-3 of the column max of the whole K5), with K2's, K3's and K5's times
+  at an offset above 0; then 4 spawned ranks over gloo, all on this one
+  card (time-sliced: no scaling number), take 3 sharded plain steps at
+  504x378, V = 2, on a (2, 1, 2) and a (1, 2, 2) mesh and one sharded
+  pseudo step (K6 and a tiny DPT replicated) from the single-card run's
+  state: metrics per step, parameters, moments and statistics at the CPU
+  tests' tolerances, every rank's state identical and K1-K5 launched on
+  every rank; then ``certify_sharded_training(4)`` (every event, the
+  restore exact, the trajectory within 5e-2 of one card; K5's atomics
+  round differently run by run, so on the card the resumed run and the
+  later ladder rungs are not compared bit for bit), and the same on 4
+  gloo ranks on the machine's CPU, where the plain path is deterministic
+  and every equality of the JAX certification holds, the resumed run bit
+  for bit; NCCL with a card per rank runs the same where the machine has
+  two cards or more.
 
 It then times each kernel, its plain version, a render, a train step, a
 pseudo step (and the prefetch's K6, fusion and rest) and the Trainer's
@@ -232,6 +252,19 @@ METRIC_TOL = 1e-5             # PSNR card vs CPU relative, SSIM absolute
 LINE_TOL = 1e-3               # conclude's per-segment lines against the known (a, b)
 POINT_TOL = 1e-4              # fused points card vs CPU, over the largest coordinate
 VIEWER_FRAMES = 10            # SIBR requests served over loopback
+SHARDS = (1, 2, 3, 4, 7)      # tile shards of the one-process tile-range gates
+PAR_RANKS = 4                 # ranks of the sharded-training phase
+PAR_AXES = ((2, 1, 2), (1, 2, 2))   # (data, gauss, tile) meshes it steps on
+PAR_V = 2                     # views per sharded step
+PAR_STEPS = 3                 # sharded steps held against the single-card steps
+PAR_TIMED = 5                 # further steps timed (not compared)
+PAR_WARMUP = 3                # single-card steps before: non-zero Adam moments
+PAR_DPT = DPTArch.tiny_hybrid()     # the depth net of the sharded pseudo step
+PAR_LOSS_RTOL = 1e-5          # sharded vs single-card step: loss and L1 relative
+PAR_PSNR_RTOL = 1e-4          # ... PSNR relative
+PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-4, 1e-6   # ... xyz and opacity
+PAR_FIELD_TOL = 1e-4          # ... moments and statistics, of each field's max
+PAR_GROUP_TIMEOUT = 300       # seconds a collective may wait before it raises
 
 
 def card_line() -> str:
@@ -464,7 +497,7 @@ def entry_power_plain(mx, my, a, b, c, px, py):
     return -0.5 * q - (b * dx) * dy          # -0.5 q is exact: one rounding, as the fma
 
 
-def composite_walk_plain(k3_args):
+def composite_walk_plain(k3_args, t0: int = 0):
     """K3's walk in plain PyTorch, one entry at a time over the [T, tile^2]
     pixels in f32: the power rounded as entry_alpha rounds it, alpha =
     min(alpha_max, op e^power), an entry skipped where power > 0 or alpha <
@@ -473,14 +506,15 @@ def composite_walk_plain(k3_args):
     last_contrib) [T, tile^2] int32, the entries up to the stop (or the
     tile's count) and one past the last entry added, and the number of
     (entry, pixel) pairs added: the contributing pairs, since every pair
-    that passes before the stop is added."""
-    from sdpgs_torch.ops.rasterize.composite import tile_pixel_coords
+    that passes before the stop is added. The table's rows are the tiles
+    from flat tile ``t0``."""
+    from sdpgs_torch.ops.rasterize.composite import tile_pixel_coords_range
 
     payload, table, counts, tiles_x, tiles_y, cfg, P = k3_args
     dev = payload.device
     alpha_min, alpha_max, t_min = (torch.tensor(v, dtype=torch.float32, device=dev) for v in
                                    (cfg.alpha_min, cfg.alpha_max, cfg.transmittance_min))
-    px, py = tile_pixel_coords(tiles_x, tiles_y, cfg.tile, device=dev)
+    px, py = tile_pixel_coords_range(t0, table.shape[0], tiles_x, cfg.tile, device=dev)
     gid = torch.where((table >= 0) & (table <= P), table, P).long()
     trans = torch.ones_like(px)
     done = torch.zeros(px.shape, dtype=torch.bool, device=dev)
@@ -506,7 +540,7 @@ def composite_walk_plain(k3_args):
     return visited, last, int(added)
 
 
-def check_k3_walk(k3_args, out, last, label: str) -> tuple:
+def check_k3_walk(k3_args, out, last, label: str, t0: int = 0) -> tuple:
     """K3's n_visit and last_contrib (``out``, ``last``: the timed instance's)
     against composite_walk_plain, which walks every entry: equal at every
     pixel, so K3's entry cull skipped no entry the walk stops at or adds.
@@ -516,8 +550,8 @@ def check_k3_walk(k3_args, out, last, label: str) -> tuple:
     from sdpgs_torch.ops.rasterize import composite_cuda
 
     stats = torch.zeros(2, dtype=torch.int64, device=out.n_visit.device)
-    out_s, last_s = composite_cuda.composite_gather_fwd(*k3_args, stats=stats)
-    visit_p, last_p, added = composite_walk_plain(k3_args)
+    out_s, last_s = composite_cuda.composite_gather_fwd(*k3_args, stats=stats, t0=t0)
+    visit_p, last_p, added = composite_walk_plain(k3_args, t0=t0)
     npix_all = last.numel()
     bad = int(((out.n_visit != visit_p) | (last != last_p)).sum())
     same_s = bool(torch.equal(out_s.n_visit, out.n_visit) and torch.equal(last_s, last))
@@ -2548,6 +2582,469 @@ def evaluate_phase(dev, tree: Path, model: Path, work: Path) -> dict:
                 wall=wall)
 
 
+def tile_range_phase(main_check: dict) -> dict:
+    """K2, K3 and K5 with a tile offset, in one process, on the main
+    scene: for each shard count n, the shards of ceil(T / n) tiles from
+    t0 = i ceil(T / n). K2's rows, counts and overflow must equal the whole
+    table's rows and K2's plain version at the same t0 bit for bit (rows
+    past the grid empty); K3's values and final_t must equal the whole
+    render's rows bit for bit (rows past the grid 0 and 1), with K3's walk
+    gate on every shard; K5's payload gradients, summed over the shards at
+    the whole cotangents' rows, must equal the whole K5's within K5_TOL of
+    the column max. Then K2, K3 and K5 are timed on the shard from t0 > 0
+    of 4 shards."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.ops.rasterize import binning, composite_cuda
+
+    packed_s, order, n_valid, T, tiles_x, K, D = main_check["k2_args"]
+    payload, _, _, _, tiles_y, cfg, P = main_check["k3_args"]
+    dev = payload.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    npix = cfg.tile ** 2
+    with torch.no_grad():
+        w_table, w_totals = binning.build_table(packed_s, order, n_valid, T, tiles_x, K, D)
+        w_table = w_table.reshape(T, K)
+        w_counts = torch.clamp_max(w_totals, K)
+        w_out, w_last = composite_cuda.composite_gather_fwd(payload, w_table, w_counts, tiles_x,
+                                                            tiles_y, cfg, P)
+        g_values = torch.randn((T, npix, 7), generator=gen, device=dev)
+        g_final_t = torch.randn((T, npix), generator=gen, device=dev)
+        d_whole = composite_cuda.composite_gather_bwd(payload, w_table, w_out.final_t, w_last,
+                                                      g_values, g_final_t, tiles_x, tiles_y,
+                                                      cfg, P)
+        _kernels.reset_counts()
+        timed = None
+        for n in SHARDS:
+            n_local = -(-T // n)
+            d_sum = torch.zeros_like(d_whole)
+            overflow = 0
+            for i in range(n):
+                t0 = i * n_local
+                inside = max(0, min(n_local, T - t0))
+                args2 = (packed_s, order, n_valid, n_local, tiles_x, K, D)
+                tab_k, tot_k = binning.build_table(*args2, t0=t0)
+                tab_p, tot_p = binning.build_table_plain(*args2, t0=t0)
+                tab_k = tab_k.reshape(n_local, K)
+                require(torch.equal(tab_k.reshape(-1), tab_p) and torch.equal(tot_k, tot_p),
+                        f"K2 at t0 {t0} differs from its plain version")
+                require(torch.equal(tab_k[:inside], w_table[t0:t0 + inside])
+                        and torch.equal(tot_k[:inside], w_totals[t0:t0 + inside]),
+                        f"K2's rows from t0 {t0} differ from the whole table's")
+                require(not bool(tot_k[inside:].any()) and bool((tab_k[inside:] == P).all()),
+                        f"K2's rows past the grid from t0 {t0} are not empty")
+                overflow += int(torch.clamp_min(tot_k - K, 0).sum())
+                counts = torch.clamp_max(tot_k, K)
+                k3_args = (payload, tab_k, counts, tiles_x, tiles_y, cfg, P)
+                out, last = composite_cuda.composite_gather_fwd(*k3_args, t0=t0)
+                require(torch.equal(out.values[:inside], w_out.values[t0:t0 + inside])
+                        and torch.equal(out.final_t[:inside], w_out.final_t[t0:t0 + inside]),
+                        f"K3's rows from t0 {t0} differ from the whole render's")
+                require(not bool(out.values[inside:].any())
+                        and bool((out.final_t[inside:] == 1.0).all()),
+                        f"K3's rows past the grid from t0 {t0} are not 0 and 1")
+                if n > 1:
+                    check_k3_walk(k3_args, out, last, f"{n} shards, t0 {t0}", t0=t0)
+                pad = n_local - inside
+                gv = torch.cat([g_values[t0:t0 + inside],
+                                torch.zeros((pad, npix, 7), device=dev)])
+                gt = torch.cat([g_final_t[t0:t0 + inside], torch.zeros((pad, npix), device=dev)])
+                k5_args = (payload, tab_k, out.final_t, last, gv, gt, tiles_x, tiles_y, cfg, P)
+                d_sum += composite_cuda.composite_gather_bwd(*k5_args, t0=t0)
+                if n == 4 and i == 1:
+                    timed = (args2, t0, k3_args, k5_args)
+            require(overflow == int(torch.clamp_min(w_totals - K, 0).sum()),
+                    f"{n} shards: the shards' overflow does not sum to the whole's")
+            rel5, rows_bad, rows_live, err = k5_errors(d_sum, d_whole)
+            print(f"  tile range, {n} shard(s) of {n_local} tiles: K2 rows, counts and "
+                  f"overflow ({overflow}) equal the whole table's and K2's plain version; K3 "
+                  f"values and final_t equal the whole render's; K5 summed over the shards: "
+                  f"rows beyond {K5_TOL:g} x column max {rows_bad} of {rows_live} (limit 0), "
+                  f"max |diff| {err:.3e}")
+            require(rows_bad == 0, f"{n} shards: K5's shard sum differs from the whole K5")
+        launches = dict(_kernels.LAUNCHES)
+        args2, t0, k3_args, k5_args = timed
+        k2_ms = cuda_ms(lambda: binning.build_table(*args2, t0=t0))
+        k3_ms = cuda_ms(lambda: composite_cuda.composite_gather_fwd(*k3_args, t0=t0))
+        k5_ms = cuda_ms(lambda: composite_cuda.composite_gather_bwd(*k5_args, t0=t0))
+    per = {k: launches[k] for k in ("binning", "composite", "composite_bwd")}
+    print(f"  tile range gates: launches {per} over {sum(SHARDS)} shards; at t0 {t0} (4 "
+          f"shards of {args2[3]} tiles): K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} ms, K5 "
+          f"{k5_ms:.4f} ms")
+    return dict(t0=t0, n_local=args2[3], k2_ms=k2_ms, k3_ms=k3_ms, k5_ms=k5_ms, launches=per)
+
+
+def par_batch(data: dict, views, dev):
+    """The ViewBatch of train views ``views`` from the sharded phase's
+    inputs (numpy on the host)."""
+    from sdpgs_torch.core.camera import Camera
+    from sdpgs_torch.train.step import ViewBatch
+
+    t = lambda a: torch.from_numpy(a[list(views)]).to(dev)  # noqa: E731
+    return ViewBatch(cameras=[Camera.create(R=np.eye(3), T=data["Ts"][v], fovx=0.9, fovy=0.7,
+                                            width=WIDTH, height=HEIGHT, device="cpu")
+                              for v in views],
+                     image=t(data["image"]), depth_mono=t(data["depth_mono"]),
+                     feature=t(data["feature"]), seg_map=t(data["seg_map"]))
+
+
+def par_view_pairs(n: int) -> list:
+    return [((i % TRAIN_CAMS), ((i + 1) % TRAIN_CAMS)) for i in range(n)]
+
+
+def par_pseudo(data: dict, dev):
+    """The sharded phase's pseudo inputs: one pseudo camera, its z-buffer
+    from K6 (``prefetch_pseudo_reproj``) on ``dev``."""
+    from sdpgs_torch.core.camera import Camera
+    from sdpgs_torch.train.loop import prefetch_pseudo_reproj
+    from sdpgs_torch.train.step import PseudoInputs
+
+    cams = [Camera.create(R=np.eye(3), T=T, fovx=0.9, fovy=0.7, width=WIDTH, height=HEIGHT,
+                          device="cpu") for T in data["Ts"]]
+    pcam = Camera.create(R=np.eye(3), T=np.array([0.03, 0.02, 0.0]), fovx=0.9, fovy=0.7,
+                         width=WIDTH, height=HEIGHT, device="cpu")
+    depths = torch.from_numpy(data["depth_mono"]).to(dev)
+    K = cams[0].intrinsics_matrix().to(dev)
+    R = torch.stack([c.view[:3, :3] for c in cams]).to(dev)
+    t = torch.stack([c.view[:3, 3] for c in cams]).to(dev)
+    [(cam, fused, weight)] = prefetch_pseudo_reproj(depths, K, R, t, [pcam])
+    return PseudoInputs(camera=cam, train_depths=depths, K=K, R_train=R, t_train=t,
+                        R_pseudo=cam.view[:3, :3].to(dev), t_pseudo=cam.view[:3, 3].to(dev),
+                        reproj_fused=fused, reproj_weight=weight, train_view_idx=1)
+
+
+def par_metrics(m) -> dict:
+    return {k: float(getattr(m, k)) for k in ("loss", "l1", "psnr")} | {
+        k: int(getattr(m, k)) for k in ("overflow", "clipped", "num_alive", "slab")}
+
+
+def snapshot(state) -> dict:
+    """``state.to_numpy()`` copied: on the CPU its arrays would share memory
+    with tensors that later steps update in place."""
+    import copy
+
+    return copy.deepcopy(state.to_numpy())
+
+
+def state_digest(arrays: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in ("gaussians", "mu", "nu", "stats"):
+        for k in sorted(arrays[part]):
+            h.update(np.ascontiguousarray(arrays[part][k]).tobytes())
+    return h.hexdigest()
+
+
+def par_steps(state, step, batches, protos, bg, dev, pseudo=None) -> tuple:
+    """Run ``step`` on each batch; returns (state, metrics per step, ms
+    per step: host clock to a synchronised device)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    metrics, times = [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        args = (state, b, protos, bg, 1.0) + (() if pseudo is None else (pseudo,))
+        state, m = step(*args, device=dev)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(par_metrics(m))
+    return state, metrics, times
+
+
+def par_reference(dev, work: Path, rng) -> dict:
+    """The single-card side of the sharded phase, on ``dev``: the LLFF-width
+    scene, PAR_WARMUP steps at V = PAR_V to the shared start state, then
+    PAR_STEPS + PAR_TIMED plain steps and one pseudo step (iteration
+    PSEUDO_START, the tiny DPT in f32) from it. The ranks' inputs go to
+    ``work``."""
+    from sdpgs_torch.config import TrainConfig
+    from sdpgs_torch.core.gaussians import Gaussians
+    from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+    from sdpgs_torch.models.dpt import random_params
+    from sdpgs_torch.train.state import TrainState
+    from sdpgs_torch.train.step import make_train_step
+
+    trainee, data = train_scene(rng, dev, WIDTH, HEIGHT, CAPACITY, ALIVE)
+    host = dict(Ts=data["Ts"], protos=data["protos"].cpu().numpy(),
+                **{k: data[k].cpu().numpy() for k in ("image", "depth_mono", "feature",
+                                                       "seg_map")})
+    protos, bg = data["protos"], torch.zeros(3, device=dev)
+    step = make_train_step(TrainConfig(), SH_DEGREE)
+    state = TrainState.create(Gaussians.from_numpy(trainee, device=dev), device=dev)
+    pairs = par_view_pairs(PAR_WARMUP + PAR_STEPS + PAR_TIMED)
+    state, _, _ = par_steps(state, step, [par_batch(host, p, dev) for p in pairs[:PAR_WARMUP]],
+                            protos, bg, dev)
+    s0 = snapshot(state)
+    batches = [par_batch(host, p, dev) for p in pairs[PAR_WARMUP:]]
+    ref = {}
+    state = TrainState.from_numpy(s0, device=dev)
+    state, metrics, times = par_steps(state, step, batches[:PAR_STEPS], protos, bg, dev)
+    ref["plain"] = dict(metrics=metrics, state=snapshot(state))
+    state, _, times = par_steps(state, step, batches[PAR_STEPS:], protos, bg, dev)
+    ref["plain_ms"] = statistics.median(times)
+    raw = random_params(PAR_DPT, seed=0)
+    mono = mono_depth_from_params(raw, arch=PAR_DPT, device=dev)
+    state = TrainState.from_numpy(s0, device=dev)
+    state.step = PSEUDO_START
+    pstep = make_train_step(TrainConfig(), SH_DEGREE, with_pseudo=True, mono_depth_fn=mono)
+    state, metrics, times = par_steps(state, pstep, batches[:1], protos, bg, dev,
+                                      pseudo=par_pseudo(host, dev))
+    ref["pseudo"] = dict(metrics=metrics, state=snapshot(state))
+    ref["pseudo_ms"] = times[0]
+    torch.save(dict(s0=s0, host=host, raw=raw), work / "par_inputs.pt")
+    return ref
+
+
+def par_rank_entry(rank: int, world: int, backend: str, work: str, device_type: str,
+                   sizes: dict, certify_only: bool) -> None:
+    """One rank of the sharded phase (a spawned process): takes the parent's
+    image size, joins the group, runs par_rank_work (or the certification
+    alone) and saves its results for the parent, which checks them."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    globals().update(sizes)
+    # the ranks share the machine's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = torch.device(device_type)
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    tag = f"{backend}_{device_type}"
+    dist.init_process_group(backend, init_method=f"file://{Path(work) / f'{tag}.rdv'}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=PAR_GROUP_TIMEOUT))
+    res = (par_certify(world, dev, Path(work)) if certify_only
+           else par_rank_work(rank, world, dev, Path(work)))
+    torch.save(res, Path(work) / f"{tag}_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def par_rank_work(rank: int, world: int, dev, work: Path) -> dict:
+    """On every rank: PAR_STEPS + PAR_TIMED sharded plain steps per mesh of
+    ``par_axes(world)`` from the shared start state, counting the kernels'
+    launches; one sharded pseudo step (K6 and the DPT replicated); then
+    certify_sharded_training(world)."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.config import TrainConfig
+    from sdpgs_torch.models.depth_estimator import mono_depth_from_params
+    from sdpgs_torch.parallel import (
+        gather_train_state,
+        make_mesh,
+        shard_batch,
+        shard_train_state,
+        state_shardings,
+    )
+    from sdpgs_torch.train.state import TrainState
+    from sdpgs_torch.train.step import make_train_step
+
+    inp = torch.load(work / "par_inputs.pt", weights_only=False)
+    host = inp["host"]
+    protos, bg = torch.from_numpy(host["protos"]).to(dev), torch.zeros(3, device=dev)
+    pairs = par_view_pairs(PAR_WARMUP + PAR_STEPS + PAR_TIMED)[PAR_WARMUP:]
+    out = dict(meshes={})
+
+    def sharded(axes, with_pseudo=False):
+        mesh = make_mesh(*axes)
+        state = TrainState.from_numpy(inp["s0"], device=dev)
+        kw = {}
+        if with_pseudo:
+            state.step = PSEUDO_START
+            kw = dict(with_pseudo=True, mono_depth_fn=mono_depth_from_params(
+                inp["raw"], arch=PAR_DPT, device=dev))
+        shardings = state_shardings(mesh, state)
+        state = shard_train_state(state, mesh)
+        step = make_train_step(TrainConfig(), SH_DEGREE, tile_mesh=mesh if axes[2] > 1 else None,
+                               out_shardings=shardings, **kw)
+        return mesh, state, step
+
+    for axes in par_axes(world):
+        mesh, state, step = sharded(axes)
+        batches = [shard_batch(par_batch(host, p, dev), mesh) for p in pairs]
+        _kernels.reset_counts()
+        state, metrics, _ = par_steps(state, step, batches[:PAR_STEPS], protos, bg, dev)
+        launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        whole = snapshot(gather_train_state(state, mesh))
+        state, _, times = par_steps(state, step, batches[PAR_STEPS:], protos, bg, dev)
+        if rank == 0:
+            print(f"  rank 0: {PAR_STEPS + PAR_TIMED} sharded steps on {axes}", flush=True)
+        out["meshes"][axes] = dict(metrics=metrics, launches=launches, plain=plain,
+                                   digest=state_digest(whole), ms=statistics.median(times),
+                                   views=len(batches[0].cameras),
+                                   state=whole if rank == 0 else None)
+    mesh, state, step = sharded(par_axes(world)[0], with_pseudo=True)
+    _kernels.reset_counts()
+    pseudo = par_pseudo(host, dev)
+    state, metrics, times = par_steps(state, step, [shard_batch(par_batch(host, pairs[0], dev),
+                                                                mesh)],
+                                      protos, bg, dev, pseudo=pseudo)
+    whole = snapshot(gather_train_state(state, mesh))
+    out["pseudo"] = dict(metrics=metrics, launches=dict(_kernels.LAUNCHES),
+                         plain=dict(_kernels.PLAIN_CALLS), digest=state_digest(whole),
+                         ms=times[0], axes=par_axes(world)[0],
+                         state=whole if rank == 0 else None)
+    out.update(par_certify(world, dev, work))
+    return out
+
+
+def par_certify(world: int, dev, work: Path) -> dict:
+    """certify_sharded_training(world) on this rank, timed."""
+    import torch.distributed as dist
+
+    from sdpgs_torch.parallel.certify import certify_sharded_training
+
+    t0 = time.perf_counter()
+    res = certify_sharded_training(
+        world, workdir=str(work / f"certify_{dist.get_backend()}_{dev.type}"), device=dev)
+    return dict(certify=res, certify_s=time.perf_counter() - t0)
+
+
+def par_axes(world: int) -> tuple:
+    return PAR_AXES if world == 4 else ((2, 1, 1), (1, 1, 2))
+
+
+def field_rel(got: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(got - ref).max() / max(float(np.abs(ref).max()), 1e-30))
+
+
+def check_par_result(got: dict, ref: dict, label: str) -> None:
+    """A sharded run's metrics per step and gathered state against the
+    single-card run's, at the CPU tests' tolerances."""
+    from sdpgs_torch.opt.adam import TRAINABLE
+    from sdpgs_torch.train.state import STAT_FIELDS
+
+    worst = dict(loss=0.0, psnr=0.0)
+    for m, r in zip(got["metrics"], ref["metrics"]):
+        for k, tol in (("loss", PAR_LOSS_RTOL), ("l1", PAR_LOSS_RTOL), ("psnr", PAR_PSNR_RTOL)):
+            rel = abs(m[k] - r[k]) / max(abs(r[k]), 1e-30)
+            worst[k] = max(worst.get(k, 0.0), rel)
+            require(rel <= tol, f"[{label}] {k} {m[k]} vs single-card {r[k]} (rel {rel:.2e})")
+        for k in ("overflow", "clipped", "num_alive", "slab"):
+            require(m[k] == r[k], f"[{label}] {k} {m[k]} vs single-card {r[k]}")
+    s, a = got["state"], ref["state"]
+    for k in ("xyz", "opacity"):
+        ok = np.allclose(s["gaussians"][k], a["gaussians"][k], rtol=PAR_PARAM_RTOL,
+                         atol=PAR_PARAM_ATOL)
+        require(ok, f"[{label}] {k} differs from the single-card step's")
+    fields = {f"mu[{k}]": (s["mu"][k], a["mu"][k]) for k in TRAINABLE}
+    fields |= {f"nu[{k}]": (s["nu"][k], a["nu"][k]) for k in TRAINABLE}
+    fields |= {k: (s["stats"][k], a["stats"][k]) for k in STAT_FIELDS}
+    rels = {k: field_rel(*v) for k, v in fields.items()}
+    print(f"  [{label}] vs single card: metrics rel {({k: f'{v:.1e}' for k, v in worst.items()})}"
+          f", moments and statistics max |diff| / field max "
+          f"{max(rels.values()):.1e} (limit {PAR_FIELD_TOL:g})")
+    require(max(rels.values()) <= PAR_FIELD_TOL,
+            f"[{label}] moments or statistics differ: {rels}")
+
+
+def sharded_phase(dev, work: Path, backend: str, world: int, ref: dict) -> dict:
+    """``world`` spawned ranks over ``backend`` (gloo: all on ``dev``'s card,
+    time-sliced; nccl: a card each) against the single-card reference."""
+    import torch.multiprocessing as tmp_mp
+
+    from sdpgs_torch import _kernels
+
+    t0 = time.perf_counter()
+    tmp_mp.spawn(par_rank_entry, args=(world, backend, str(work), dev.type,
+                                       dict(WIDTH=WIDTH, HEIGHT=HEIGHT), False),
+                 nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(work / f"{backend}_{dev.type}_rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    print(f"sharded training: backend {backend}, world size {world}"
+          + (", every rank time-sliced on one card (not a scaling measurement)"
+             if backend == "gloo" else ", one card per rank") + f"; the ranks took {wall:.1f} s")
+    steps = _kernels.FORWARD_KERNELS + _kernels.BACKWARD_KERNELS
+    for axes in par_axes(world):
+        res = [r["meshes"][axes] for r in ranks]
+        label = f"{backend} {axes[0]}x{axes[1]}x{axes[2]}"
+        check_par_result(res[0], ref["plain"], label)
+        require(len({r["digest"] for r in res}) == 1, f"[{label}] the ranks' states differ")
+        for r, x in enumerate(res):
+            want = PAR_STEPS * x["views"]
+            require(all(x["launches"][k] == want for k in steps),
+                    f"[{label}] rank {r} launched {x['launches']}, not K1-K5 {want} times each")
+            require(not any(x["plain"].values()), f"[{label}] rank {r} ran a plain version")
+        print(f"  [{label}] launches per rank (K1-K5 over {PAR_STEPS} steps of {res[0]['views']}"
+              f" view(s)): {[{k: x['launches'][k] for k in steps} for x in res]}; "
+              f"ms per sharded step (median of {PAR_TIMED}, per rank) "
+              f"{[round(x['ms'], 3) for x in res]} beside the single-card step's "
+              f"{ref['plain_ms']:.3f} ms")
+    res = [r["pseudo"] for r in ranks]
+    label = f"{backend} pseudo {res[0]['axes']}"
+    check_par_result(res[0], ref["pseudo"], label)
+    require(len({r["digest"] for r in res}) == 1, f"[{label}] the ranks' states differ")
+    for r, x in enumerate(res):
+        require(all(x["launches"][k] > 0 for k in steps + _kernels.WARP_KERNELS)
+                and not any(x["plain"].values()),
+                f"[{label}] rank {r}: launches {x['launches']}, plain {x['plain']}")
+    print(f"  [{label}] launches per rank {[x['launches'] for x in res]}; ms (first step, per "
+          f"rank) {[round(x['ms'], 1) for x in res]} beside the single-card pseudo step's "
+          f"{ref['pseudo_ms']:.1f} ms")
+    check_certify(ranks, world, dev.type)
+    return dict(wall=wall, ms={axes: [r["meshes"][axes]["ms"] for r in ranks]
+                               for axes in par_axes(world)})
+
+
+def check_certify(ranks: list, world: int, device_type: str) -> None:
+    """The ranks' certification summaries: one sharded run, so its fields
+    agree on every rank (each rank's single-card leg is its own); the
+    restore exact, and on the CPU, where the path is deterministic, the
+    resumed run bit-exact."""
+    cert = [r["certify"] for r in ranks]
+    shared = ("mesh", "densify_iters", "reset_iters", "ladder_events", "final_loss_sharded",
+              "final_alive", "final_alive_single", "restore_exact")
+    require(all(c[k] == cert[0][k] for c in cert for k in shared),
+            "the ranks' certification summaries of the sharded run differ")
+    c = cert[0]
+    print(f"  certify_sharded_training({world}) on {device_type}: mesh {c['mesh']}, densify at "
+          f"{c['densify_iters']}, resets at {c['reset_iters']}, ladder {c['ladder_events']} "
+          f"(the ranks' single-card legs {[x['ladder_events_single'] for x in cert]}), "
+          f"restore exact {c['restore_exact']}, resumed run bit-exact {c['resume_bitexact']} "
+          f"(largest parameter difference {c['resume_max_param_diff']:.3e}), final loss "
+          f"sharded {c['final_loss_sharded']:.5f} vs single {c['final_loss_single']:.5f}, "
+          f"alive sharded {c['final_alive']}, single-card legs (min, max over the ranks) "
+          f"{c['final_alive_single']}; {ranks[0]['certify_s']:.1f} s")
+    require(c["restore_exact"], "the certification's restore was not exact")
+    require(device_type != "cpu" or c["resume_bitexact"],
+            "the resumed run on the CPU is not bit-exact")
+
+
+def cpu_certify_phase(work: Path, world: int) -> None:
+    """certify_sharded_training(world) on gloo ranks on this machine's
+    CPU, where the plain path is deterministic: every equality of the JAX
+    certification, the resumed run bit-exact."""
+    import torch.multiprocessing as tmp_mp
+
+    t0 = time.perf_counter()
+    tmp_mp.spawn(par_rank_entry, args=(world, "gloo", str(work), "cpu", {}, True),
+                 nprocs=world, join=True)
+    ranks = [torch.load(work / f"gloo_cpu_rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    print(f"sharded training on the CPU: backend gloo, world size {world}; the ranks took "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_certify(ranks, world, "cpu")
+
+
+def parallel_phase(dev, main_check: dict, work: Path) -> dict:
+    """Phase 13: the tile range in one process, then the sharded Trainer's
+    path on PAR_RANKS gloo ranks sharing this card, the certification again
+    on PAR_RANKS gloo ranks on the CPU, then NCCL with a card per rank
+    where the machine has them."""
+    res = dict(tile_range=tile_range_phase(main_check))
+    ref = par_reference(dev, work, np.random.default_rng(11))
+    res["gloo"] = sharded_phase(dev, work, "gloo", PAR_RANKS, ref)
+    cpu_certify_phase(work, PAR_RANKS)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        res["nccl"] = sharded_phase(dev, work, "nccl", 4 if cards >= 4 else 2, ref)
+    else:
+        print(f"nccl: not run ({cards} card)")
+    return res
+
+
 def k1_k4_times(k1_args, k4_args) -> tuple:
     """K1's and K4's own times: the bare launchers with the camera vector
     on the host (they pass it to the kernel by value, so no copy to the
@@ -2574,7 +3071,7 @@ def main(device: str = "cuda") -> int:
 
 
 def drive(dev: torch.device, work: Path) -> int:
-    """Phases 2-12 on ``dev``, writing the PLY, the renders, the Trainer's files
+    """Phases 2-13 on ``dev``, writing the PLY, the renders, the Trainer's files
     and the LLFF tree with the CLI's model directory under ``work``."""
     from sdpgs_torch import _kernels
     from sdpgs_torch.cli.render_cli import render_set
@@ -2719,7 +3216,11 @@ def drive(dev: torch.device, work: Path) -> int:
     # model, the depth prior and fusion on its tree, the viewer, a trace ----
     evaluation = evaluate_phase(dev, work / "llff_fern", work / "llff_fern_out", work)
 
-    # -- 13. kernel timings and bounds --------------------------------------
+    # -- 13. multi-card training: the tile range of K2, K3 and K5, then the
+    # sharded steps, a sharded pseudo step and the certification on ranks ---
+    parallel_phase(dev, main_check, work)
+
+    # -- 14. kernel timings and bounds --------------------------------------
     k1_args, k2_args, k3_args = (main_check[k] for k in ("k1_args", "k2_args", "k3_args"))
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))

@@ -24,7 +24,9 @@ Blender and mip-NeRF-360 trees) or an in-memory
 ``models/lpips.py``). The depth prior: ``pipelines/`` (segment-wise depth
 alignment, multi-view fusion, the MVS and COLMAP helpers) over the
 ``native/`` I/O library; ``viewer/`` serves SIBR's remote viewer and
-``utils/profiling`` traces. Eight
+``utils/profiling`` traces. Multi-card training: ``parallel/`` puts the
+train step and the ``Trainer`` on a (data, gauss, tile) mesh of
+``torch.distributed`` ranks. Eight
 kernels in ``csrc/`` carry them on the card: three forward (preprocess,
 binning, compositing), two backward (preprocess, compositing), the
 reprojection z-buffer, and two that serve their own entry points, the

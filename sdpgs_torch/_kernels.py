@@ -69,24 +69,27 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # geo, sh, cam(host [39]), out, P, deg, width, height, near, low_pass, stream
     "sdpgs_preprocess_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # packed_s, order, n_valid(dev), table, totals, cover(scratch), P, num_tiles,
-    # tiles_x, K, D, stream
-    "sdpgs_bin_table": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # packed_s, order, n_valid(dev), table, totals, cover(scratch), P, n_local,
+    # t0, tiles_x, K, D, stream
+    "sdpgs_bin_table": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # P -> u32 words of K2's scratch per tile
     "sdpgs_bin_table_scratch_words": [_I],
     # payload, table, counts, values, final_t, n_visit, last_contrib, P,
-    # num_tiles, tiles_x, tile, K, alpha_min, alpha_max, t_min, stream
-    "sdpgs_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    # num_tiles (rows), t0, grid_tiles, tiles_x, tile, K, alpha_min, alpha_max,
+    # t_min, stream
+    "sdpgs_composite_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _F, _P],
     # the same with stats (or null) after last_contrib
-    "sdpgs_composite_fwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                  _F, _P],
+    "sdpgs_composite_fwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _F, _F, _P],
     # geo, sh, ct, cam(host [39]), dgeo, dsh, masks(or null), P, deg, width,
     # height, near, low_pass, stream
     "sdpgs_preprocess_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # payload, table, final_t, last_contrib, g_values, g_final_t, d_payload,
-    # stats(or null), P, num_tiles, tiles_x, tile, K, alpha_min, alpha_max,
-    # stream
-    "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # stats(or null), P, num_tiles (rows), t0, grid_tiles, tiles_x, tile, K,
+    # alpha_min, alpha_max, stream
+    "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                            _P],
     # depths, pc, out, n_pairs, V, H, W, cluster (0: the general path), rows,
     # stream
     "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

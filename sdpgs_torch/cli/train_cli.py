@@ -4,10 +4,16 @@ Counterpart of ``sdpgs_tpu/cli/train_cli.py`` (the reference's
 ``python train.py -s <scene> -m <out>``, train.py:309-342): the same flags,
 names and defaults, one per ``OptimizationConfig`` field among them, so a
 JAX command line runs unchanged; the config is saved as ``cfg.json``.
-Training runs on one card. A ``--mesh`` whose product exceeds 1, and the
-multi-process flags (or their ``SDPGS_*`` environment variables), end in
-``SystemExit``: multi-card training comes with the parallelism slice
-(ROADMAP.md A5).
+
+Multi-card training: one process per rank, formed by the ``--dist_*`` flags
+(or their ``SDPGS_*`` environment variables, ``parallel/distributed.py``)
+before the card is touched, with ``--mesh data=..,gauss=..,tile=..`` whose
+product is the number of ranks, e.g.::
+
+    torchrun --nproc_per_node 4 -m sdpgs_torch.cli.train_cli -s <scene> -m <out> \
+        --views_per_batch 2 --mesh data=2,gauss=1,tile=2 --dist_coordinator auto
+
+Rank 0 alone writes the model directory.
 """
 
 from __future__ import annotations
@@ -16,10 +22,6 @@ import argparse
 import dataclasses
 import os
 from pathlib import Path
-
-# The JAX package's multi-process rendezvous reads these when the flags are
-# absent (sdpgs_tpu/parallel/distributed.py:44-55).
-DIST_ENV = ("SDPGS_COORDINATOR", "SDPGS_NUM_PROCESSES", "SDPGS_PROCESS_ID")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,15 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--views_per_batch", type=int, default=1,
                    help="views per training step")
     p.add_argument("--mesh", type=str, default="",
-                   help="device mesh, e.g. 'data=1,gauss=1,tile=1' (axes default to "
-                        "1); a product above 1 is refused until multi-card training")
-    p.add_argument("--dist_coordinator", type=str, default="",
-                   help="multi-process coordinator host:port (refused until "
-                        "multi-card training)")
-    p.add_argument("--dist_num_processes", type=int, default=None,
-                   help="total number of processes (refused until multi-card training)")
-    p.add_argument("--dist_process_id", type=int, default=None,
-                   help="this process's id (refused until multi-card training)")
+                   help="device mesh, e.g. 'data=2,gauss=1,tile=2' (axes default to 1); "
+                        "its product is the number of ranks")
+    from sdpgs_torch.parallel.distributed import add_distributed_args
+
+    add_distributed_args(p)
     # optimization overrides (reference per-scene flags, run_llff_mvs.sh)
     for f in dataclasses.fields(OptimizationConfig):
         # flags already declared explicitly above
@@ -77,21 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_multi_process(args) -> None:
-    """Multi-process flags or environment variables: SystemExit, so that no
-    run falls back to one card without saying so."""
-    asked = [f"--{k}" for k in ("dist_coordinator", "dist_num_processes", "dist_process_id")
-             if getattr(args, k) not in (None, "")]
-    asked += [k for k in DIST_ENV if os.environ.get(k)]
-    if asked:
-        raise SystemExit(f"{', '.join(asked)}: multi-process training comes with the "
-                         "parallelism slice (ROADMAP.md A5); sdpgs_torch trains on one card")
-
-
 def config_from_args(args):
     from sdpgs_torch.config import OptimizationConfig, TrainConfig
 
-    _refuse_multi_process(args)
     cfg = TrainConfig()
     cfg.seed = args.seed
     m = cfg.model
@@ -117,10 +103,6 @@ def config_from_args(args):
                 raise SystemExit(
                     f"--mesh: unknown axis {name!r} (data/gauss/tile)")
             axes[name] = int(val)
-        if axes["data"] * axes["gauss"] * axes["tile"] > 1:
-            raise SystemExit(f"--mesh {args.mesh}: multi-card training comes with the "
-                             "parallelism slice (ROADMAP.md A5); sdpgs_torch trains on one "
-                             "card")
         cfg.mesh_data = axes["data"]
         cfg.mesh_gauss = axes["gauss"]
         cfg.mesh_tile = axes["tile"]
@@ -137,18 +119,25 @@ def config_from_args(args):
     return cfg
 
 
-def main(argv=None, device=None):
-    """Parse ``argv``, save ``cfg.json``, build the Trainer (which loads the
-    scene) on ``device`` (``cuda`` unless the caller asks for another),
-    resume from ``--start_checkpoint dir:step`` and train. Returns the
-    Trainer."""
+def main(argv=None, device=None, backend=None):
+    """Parse ``argv``, form the process group when the ``--dist_*`` flags
+    ask for one (with ``backend``: NCCL where a card exists unless the
+    caller asks for gloo), save ``cfg.json``, build the Trainer (which loads the
+    scene) on ``device`` (``cuda`` unless the caller asks for another; a
+    rank's own card under NCCL), resume from ``--start_checkpoint dir:step``
+    and train. Returns the Trainer."""
     args = build_parser().parse_args(argv)
+    from sdpgs_torch.parallel.distributed import maybe_initialize_distributed
+
+    multi = maybe_initialize_distributed(args, backend=backend)
     cfg = config_from_args(args)
 
     from sdpgs_torch.config import save_config
     from sdpgs_torch.train.loop import Trainer
 
-    if cfg.model.model_path:
+    import torch.distributed as dist
+
+    if cfg.model.model_path and (not multi or dist.get_rank() == 0):
         Path(cfg.model.model_path).mkdir(parents=True, exist_ok=True)
         save_config(cfg, Path(cfg.model.model_path) / "cfg.json")
 

@@ -15,6 +15,13 @@
 // its rank < K; the table therefore has sentinel holes where a covering
 // Gaussian lost its entry to the D cap, and the counts include the holes.
 //
+// Tile range (the tile-sharded render, sdpgs_torch/parallel/tile_shard.py;
+// rank_pallas.py takes the shard's first tile as a scalar prefetch): the
+// table holds the n_local tiles from flat tile t0, each block taking its
+// tile's coordinates from t0 + its row. A rank depends only on the rects
+// covering its own tile, so a shard's rows equal the whole table's rows;
+// a tile past the grid lies below every rect and is an empty row.
+//
 // Bound on the H100: bytes, counted as the compulsory traffic (the packed
 // rects and the sort order read once, the table and totals written once).
 //
@@ -64,7 +71,7 @@ int words_per_tile(int P) {
 
 __global__ void __launch_bounds__(kCoverThreads)
 cover_words_kernel(const int* __restrict__ packed_s, const int* __restrict__ n_valid_ptr,
-                   unsigned* __restrict__ cover, int num_tiles, int tiles_x, int words) {
+                   unsigned* __restrict__ cover, int n_local, int t0, int tiles_x, int words) {
   const int w = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int n_valid = *n_valid_ptr;
@@ -78,9 +85,10 @@ cover_words_kernel(const int* __restrict__ packed_s, const int* __restrict__ n_v
     ymin = (pk >> 16) & 0xFF;
     ymax = (pk >> 24) & 0xFF;
   }
-  // this warp's 32 tiles (blockIdx.y); tiles past num_tiles lie below every rect
-  const int t0 = blockIdx.y * 32;
-  int tx = t0 % tiles_x, ty = t0 / tiles_x;
+  // this warp's 32 tiles (blockIdx.y) of the range, from global tile t0 + local;
+  // tiles past the grid lie below every rect
+  const int local = blockIdx.y * 32;
+  int tx = (t0 + local) % tiles_x, ty = (t0 + local) / tiles_x;
   unsigned mine = 0;
 #pragma unroll 8
   for (int j = 0; j < 32; ++j) {
@@ -92,7 +100,7 @@ cover_words_kernel(const int* __restrict__ packed_s, const int* __restrict__ n_v
       ++ty;
     }
   }
-  if (t0 + lane < num_tiles) cover[(size_t)(t0 + lane) * words + w] = mine;
+  if (local + lane < n_local) cover[(size_t)(local + lane) * words + w] = mine;
 }
 
 // Takes the lowest set bit of `bits` (clearing it) as a Gaussian of word
@@ -107,13 +115,13 @@ __device__ __forceinline__ int take_bit(unsigned& bits, int word) {
 __global__ void __launch_bounds__(kTableThreads)
 bin_table_kernel(const int* __restrict__ packed_s, const int* __restrict__ order,
                  const int* __restrict__ n_valid_ptr, const unsigned* __restrict__ cover,
-                 int* __restrict__ table, int* __restrict__ totals, int P, int tiles_x,
-                 int words, int K, int D) {
+                 int* __restrict__ table, int* __restrict__ totals, int P, int t0,
+                 int tiles_x, int words, int K, int D) {
   __shared__ int warp_base[32];
   __shared__ int chunk_total;
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x;
+  const int tile = blockIdx.x;  // the row of the range; global tile t0 + tile
+  const int tx = (t0 + tile) % tiles_x;
+  const int ty = (t0 + tile) / tiles_x;
   const int used = (*n_valid_ptr + 31) >> 5;  // the words (A) wrote
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -194,24 +202,27 @@ bin_table_kernel(const int* __restrict__ packed_s, const int* __restrict__ order
 SDPGS_API int sdpgs_bin_table_scratch_words(int P) { return words_per_tile(P); }
 
 // packed_s, order: [P] i32 depth-sorted rects and Gaussian ids; n_valid: a
-// device i32 (no host sync). table [num_tiles*K] i32 and totals
-// [num_tiles] i32 (uncapped counts) are written whole; cover is scratch
-// of num_tiles * sdpgs_bin_table_scratch_words(P) u32, in any state.
+// device i32 (no host sync). The table covers the n_local tiles from flat
+// tile t0 (a tile-sharded render's range; 0 and the grid's tile count for a
+// whole view); a tile past the grid is an empty row. table [n_local*K] i32
+// and totals [n_local] i32 (uncapped counts) are written whole; cover is
+// scratch of n_local * sdpgs_bin_table_scratch_words(P) u32, in any state.
 SDPGS_API int sdpgs_bin_table(const int* packed_s, const int* order, const int* n_valid,
-                              int* table, int* totals, unsigned* cover, int P, int num_tiles,
-                              int tiles_x, int K, int D, void* stream) {
-  if (num_tiles == 0) return 0;
+                              int* table, int* totals, unsigned* cover, int P, int n_local,
+                              int t0, int tiles_x, int K, int D, void* stream) {
+  if (n_local == 0) return 0;
+  if (t0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int words = words_per_tile(P);
   auto s = static_cast<cudaStream_t>(stream);
   const int warps_per_block = kCoverThreads / 32;
-  const dim3 blocks((words + warps_per_block - 1) / warps_per_block, (num_tiles + 31) / 32);
+  const dim3 blocks((words + warps_per_block - 1) / warps_per_block, (n_local + 31) / 32);
   if (blocks.x > 0) {
-    cover_words_kernel<<<blocks, kCoverThreads, 0, s>>>(packed_s, n_valid, cover, num_tiles,
+    cover_words_kernel<<<blocks, kCoverThreads, 0, s>>>(packed_s, n_valid, cover, n_local, t0,
                                                         tiles_x, words);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
-  bin_table_kernel<<<num_tiles, kTableThreads, 0, s>>>(packed_s, order, n_valid, cover, table,
-                                                       totals, P, tiles_x, words, K, D);
+  bin_table_kernel<<<n_local, kTableThreads, 0, s>>>(packed_s, order, n_valid, cover, table,
+                                                     totals, P, t0, tiles_x, words, K, D);
   return static_cast<int>(cudaGetLastError());
 }

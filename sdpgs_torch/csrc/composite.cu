@@ -23,6 +23,12 @@
 // starts. Whether an entry touches a pixel is decided by
 // composite_math.cuh:entry_alpha, the code K5 runs too.
 //
+// Tile range (the tile-sharded render, sdpgs_torch/parallel/tile_shard.py):
+// the table's rows are the n_local tiles from flat tile t0, and a block
+// takes its pixel coordinates from global tile t0 + its row; a row past the
+// grid's own tile count is empty (values 0, final_t 1), and the cull's proof
+// is checked against the grid, not the range.
+//
 // Design (K5's shape and K5's cull). A tile whose side is a multiple of 16
 // is split into 16x16 squares, one 256-thread block each (4 blocks per
 // 32x32 tile); a tile of 8 or 24 is one block. Each warp takes an 8x4
@@ -77,13 +83,16 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
                      const int* __restrict__ counts, float* __restrict__ values,
                      float* __restrict__ final_t, int* __restrict__ n_visit,
                      int* __restrict__ last_contrib, unsigned long long* __restrict__ stats,
-                     int P, int tiles_x, int tile, int square, int blocks_per_tile, int K,
-                     float alpha_min, float alpha_max, float t_min, bool cull) {
+                     int P, int t0, int grid_tiles, int tiles_x, int tile, int square,
+                     int blocks_per_tile, int K, float alpha_min, float alpha_max,
+                     float t_min, bool cull) {
   __shared__ float s_pay[SDPGS_NPAY][kBatch];
   __shared__ Box s_box[kBatch];
 
-  // block -> (tile, part), thread -> pixel (lx, ly) of the tile
+  // block -> (row t of the range, part), thread -> pixel (lx, ly) of global
+  // tile t0 + t
   const int t = blockIdx.x / blocks_per_tile;
+  const int gt = t0 + t;
   const int part = blockIdx.x - t * blocks_per_tile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -97,8 +106,8 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
     lx = i % tile;
     ly = i / tile;
   }
-  const float tx0 = (float)((t % tiles_x) * tile);
-  const float ty0 = (float)((t / tiles_x) * tile);
+  const float tx0 = (float)((gt % tiles_x) * tile);
+  const float ty0 = (float)((gt / tiles_x) * tile);
   const float px = tx0 + (float)lx;
   const float py = ty0 + (float)ly;
   // the warp's patch: the bounding box of its pixel centres
@@ -106,7 +115,7 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
   const float x1 = tx0 + (float)__reduce_max_sync(kFullMask, active ? lx : INT_MIN);
   const float y0 = ty0 + (float)__reduce_min_sync(kFullMask, active ? ly : INT_MAX);
   const float y1 = ty0 + (float)__reduce_max_sync(kFullMask, active ? ly : INT_MIN);
-  const int count = counts[t];
+  const int count = gt < grid_tiles ? counts[t] : 0;
   const int* row = table + (size_t)t * K;
 
   float T = 1.0f;
@@ -189,10 +198,10 @@ composite_fwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
 
 int launch(const float* payload, const int* table, const int* counts, float* values,
            float* final_t, int* n_visit, int* last_contrib, unsigned long long* stats, int P,
-           int num_tiles, int tiles_x, int tile, int K, float alpha_min, float alpha_max,
-           float t_min, void* stream) {
+           int num_tiles, int t0, int grid_tiles, int tiles_x, int tile, int K,
+           float alpha_min, float alpha_max, float t_min, void* stream) {
   const int npix = tile * tile;
-  if (npix > 1024 || npix <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (npix > 1024 || npix <= 0 || t0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (num_tiles == 0) return 0;
   int square = 0, blocks_per_tile, threads;
   if (tile % kPatchW == 0) {  // 8, 16, 24 or 32
@@ -203,11 +212,11 @@ int launch(const float* payload, const int* table, const int* counts, float* val
     blocks_per_tile = (npix + kChunk - 1) / kChunk;
     threads = npix < kChunk ? (npix + 31) / 32 * 32 : kChunk;
   }
-  const bool cull = sdpgs_comp::cull_holds(tiles_x, num_tiles, tile, alpha_min);
+  const bool cull = sdpgs_comp::cull_holds(tiles_x, grid_tiles, tile, alpha_min);
   auto kernel = stats != nullptr ? composite_fwd_kernel<true> : composite_fwd_kernel<false>;
   kernel<<<num_tiles * blocks_per_tile, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      payload, table, counts, values, final_t, n_visit, last_contrib, stats, P, tiles_x, tile,
-      square, blocks_per_tile, K, alpha_min, alpha_max, t_min, cull);
+      payload, table, counts, values, final_t, n_visit, last_contrib, stats, P, t0, grid_tiles,
+      tiles_x, tile, square, blocks_per_tile, K, alpha_min, alpha_max, t_min, cull);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -215,15 +224,19 @@ int launch(const float* payload, const int* table, const int* counts, float* val
 
 // payload [P+1, 13] f32 (row P = zero sentinel), table [num_tiles, K] i32
 // (entries outside [0, P] read as the sentinel), counts [num_tiles] i32
-// (<= K). values [num_tiles, tile^2, 7] f32, final_t [num_tiles, tile^2]
-// f32, n_visit and last_contrib [num_tiles, tile^2] i32.
+// (<= K): the num_tiles rows are the tiles from flat tile t0 of a grid of
+// grid_tiles tiles, tiles_x wide. values [num_tiles, tile^2, 7] f32,
+// final_t [num_tiles, tile^2] f32, n_visit and last_contrib
+// [num_tiles, tile^2] i32.
 SDPGS_API int sdpgs_composite_fwd(const float* payload, const int* table,
                                   const int* counts, float* values, float* final_t,
                                   int* n_visit, int* last_contrib, int P, int num_tiles,
-                                  int tiles_x, int tile, int K, float alpha_min,
-                                  float alpha_max, float t_min, void* stream) {
+                                  int t0, int grid_tiles, int tiles_x, int tile, int K,
+                                  float alpha_min, float alpha_max, float t_min,
+                                  void* stream) {
   return launch(payload, table, counts, values, final_t, n_visit, last_contrib, nullptr, P,
-                num_tiles, tiles_x, tile, K, alpha_min, alpha_max, t_min, stream);
+                num_tiles, t0, grid_tiles, tiles_x, tile, K, alpha_min, alpha_max, t_min,
+                stream);
 }
 
 // The same, through the instance that also counts: stats is 2 u64 zeroed by
@@ -233,8 +246,10 @@ SDPGS_API int sdpgs_composite_fwd_stats(const float* payload, const int* table,
                                         const int* counts, float* values, float* final_t,
                                         int* n_visit, int* last_contrib,
                                         unsigned long long* stats, int P, int num_tiles,
-                                        int tiles_x, int tile, int K, float alpha_min,
-                                        float alpha_max, float t_min, void* stream) {
+                                        int t0, int grid_tiles, int tiles_x, int tile, int K,
+                                        float alpha_min, float alpha_max, float t_min,
+                                        void* stream) {
   return launch(payload, table, counts, values, final_t, n_visit, last_contrib, stats, P,
-                num_tiles, tiles_x, tile, K, alpha_min, alpha_max, t_min, stream);
+                num_tiles, t0, grid_tiles, tiles_x, tile, K, alpha_min, alpha_max, t_min,
+                stream);
 }

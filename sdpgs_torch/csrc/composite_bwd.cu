@@ -27,6 +27,11 @@
 // the entries past a pixel's last contributor are never visited: the
 // contributor set is K3's exactly.
 //
+// Tile range: as K3, the rows are the tiles from flat tile t0 with pixel
+// coordinates from the global tile; a row past the grid adds nothing, and
+// the cull's proof is checked against the grid. The tile-sharded render
+// sums each shard's payload gradient over its ranks.
+//
 // Design. A tile whose side is a multiple of 16 is split into 16x16
 // squares, one 256-thread block each (4 blocks per 32x32 tile); another
 // tile (8 or 24) is one block. Each warp takes an 8x4 patch of pixels.
@@ -104,8 +109,9 @@ composite_bwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
                      const int* __restrict__ last_contrib,
                      const float* __restrict__ g_values,
                      const float* __restrict__ g_final_t, float* __restrict__ d_payload,
-                     unsigned long long* __restrict__ stats, int P, int tiles_x, int tile,
-                     int square, int K, float alpha_min, float alpha_max, bool cull) {
+                     unsigned long long* __restrict__ stats, int P, int t0, int grid_tiles,
+                     int tiles_x, int tile, int square, int K, float alpha_min,
+                     float alpha_max, bool cull) {
   __shared__ float s_pay[SDPGS_NPAY][kBatch];
   __shared__ float s_acc[kBatch * SDPGS_NPAY];  // entry-major: a row's 13 in 13 banks
   __shared__ Box s_box[kBatch];
@@ -120,15 +126,16 @@ composite_bwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
   const int warp = threadIdx.x >> 5;
   int lx, ly;
   sdpgs_comp::patch_pixel(sq, warp, lane, tile, square, lx, ly);
-  const float px = (float)((t % tiles_x) * tile + lx);
-  const float py = (float)((t / tiles_x) * tile + ly);
+  const int gt = t0 + t;  // the global tile of row t
+  const float px = (float)((gt % tiles_x) * tile + lx);
+  const float py = (float)((gt / tiles_x) * tile + ly);
   // the warp's patch: pixel centres [px0, px0 + 7] x [py0, py0 + 3]
   const float px0 = px - (float)(lane % kPatchW);
   const float py0 = py - (float)(lane / kPatchW);
   const int* row = table + (size_t)t * K;
   const size_t o = (size_t)t * tile * tile + ly * tile + lx;
 
-  const int my_last = last_contrib[o];
+  const int my_last = gt < grid_tiles ? last_contrib[o] : 0;  // a row past the grid: none
   float g[SDPGS_NCH];
 #pragma unroll
   for (int ch = 0; ch < SDPGS_NCH; ++ch) g[ch] = g_values[o * SDPGS_NCH + ch];
@@ -231,7 +238,9 @@ composite_bwd_kernel(const float* __restrict__ payload, const int* __restrict__ 
 
 }  // namespace
 
-// payload [P+1, 13] f32 (row P = zero sentinel), table [num_tiles, K] i32,
+// payload [P+1, 13] f32 (row P = zero sentinel), table [num_tiles, K] i32
+// whose rows are the tiles from flat tile t0 of a grid of grid_tiles tiles
+// (a row past the grid adds nothing),
 // final_t and g_final_t [num_tiles, tile^2] f32, last_contrib
 // [num_tiles, tile^2] i32 (from K3), g_values [num_tiles, tile^2, 7] f32;
 // d_payload [P+1, 13] f32, zeroed by the caller, accumulates the gradient
@@ -242,20 +251,20 @@ SDPGS_API int sdpgs_composite_bwd(const float* payload, const int* table,
                                   const float* final_t, const int* last_contrib,
                                   const float* g_values, const float* g_final_t,
                                   float* d_payload, unsigned long long* stats, int P,
-                                  int num_tiles, int tiles_x, int tile, int K,
-                                  float alpha_min, float alpha_max, void* stream) {
+                                  int num_tiles, int t0, int grid_tiles, int tiles_x, int tile,
+                                  int K, float alpha_min, float alpha_max, void* stream) {
   const int npix = tile * tile;
-  if (npix > 1024 || npix <= 0 || npix % 32 != 0) {
+  if (npix > 1024 || npix <= 0 || npix % 32 != 0 || t0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles == 0) return 0;
   // tile^2 a multiple of 32 makes the tile a multiple of 8: 8, 16, 24 or 32
   const int square = sdpgs_comp::square_side(tile);
   const int squares = (tile / square) * (tile / square);
-  const bool cull = sdpgs_comp::cull_holds(tiles_x, num_tiles, tile, alpha_min);
+  const bool cull = sdpgs_comp::cull_holds(tiles_x, grid_tiles, tile, alpha_min);
   auto kernel = stats != nullptr ? composite_bwd_kernel<true> : composite_bwd_kernel<false>;
   kernel<<<num_tiles * squares, square * square, 0, static_cast<cudaStream_t>(stream)>>>(
-      payload, table, final_t, last_contrib, g_values, g_final_t, d_payload, stats, P,
-      tiles_x, tile, square, K, alpha_min, alpha_max, cull);
+      payload, table, final_t, last_contrib, g_values, g_final_t, d_payload, stats, P, t0,
+      grid_tiles, tiles_x, tile, square, K, alpha_min, alpha_max, cull);
   return static_cast<int>(cudaGetLastError());
 }

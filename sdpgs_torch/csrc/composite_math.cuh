@@ -151,7 +151,8 @@ SDPGS_DEVICE bool box_meets(const Box& bx, float x0, float x1, float y0, float y
 }
 
 // Whether entry_box's proof holds for this launch: pixel coordinates within
-// kMaxCoord and alpha_min >= kMinAlpha. Where it does not, the kernels walk
+// kMaxCoord and alpha_min >= kMinAlpha. num_tiles is the grid's, also where
+// a launch takes a range of its tiles. Where it does not, the kernels walk
 // every entry.
 inline bool cull_holds(int tiles_x, int num_tiles, int tile, float alpha_min) {
   const int tiles_y = (num_tiles + tiles_x - 1) / tiles_x;

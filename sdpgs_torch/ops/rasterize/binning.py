@@ -14,6 +14,11 @@ K2 stands in for all three TPU rank-kernel layouts. K2 builds the table
 from coverage words (one bit per sorted Gaussian and tile, 32 Gaussians to
 a word) whose popcount prefix gives each entry its rank. Capacity semantics:
 per-tile K overflow and per-Gaussian D clipping are counted, never silent.
+
+``tile_range=(t0, n_local)`` builds the rows of the ``n_local`` tiles from
+flat tile ``t0`` only (a tile-sharded render's shard, binning.py:106-113
+there): a within-tile rank depends only on the rects covering that tile, so
+the rows equal the whole table's. A tile past the grid is an empty row.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ from sdpgs_torch.ops.rasterize.preprocess import Preprocessed
 
 
 class Binning(NamedTuple):
-    tile_index: torch.Tensor   # [num_tiles, K] int32 into [P+1]-padded payloads
-    tile_counts: torch.Tensor  # [num_tiles] int32 entries per tile (<= K)
-    overflow: torch.Tensor     # 0-d int32: entries dropped by the K cap
-    clipped: torch.Tensor      # 0-d int32: tile slots dropped by the D cap
-    num_entries: torch.Tensor  # 0-d int32: total (tile, gaussian) pairs
+    tile_index: torch.Tensor   # [T, K] int32 into [P+1]-padded payloads (T: the
+                               # grid's tiles, or the n_local of a tile range)
+    tile_counts: torch.Tensor  # [T] int32 entries per tile (<= K)
+    overflow: torch.Tensor     # 0-d int32: entries of these tiles dropped by the K cap
+    clipped: torch.Tensor      # 0-d int32: tile slots dropped by the D cap (all tiles)
+    num_entries: torch.Tensor  # 0-d int32: total (tile, gaussian) pairs (all tiles)
 
 
 def tile_grid(width: int, height: int, tile: int) -> tuple[int, int]:
@@ -72,11 +78,12 @@ def _tile_chunk(num_tiles: int, P: int) -> int:
 
 
 def build_table_plain(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
-                      K: int, D: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      K: int, D: int, t0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2: (table [num_tiles*K] int32 with sentinel
-    P, uncapped per-tile totals [num_tiles] int32). It scans all P sorted
-    rects; ``n_valid`` (where the kernel stops) changes nothing here, as
-    the culled ones past it have empty rects."""
+    P, uncapped per-tile totals [num_tiles] int32) for the ``num_tiles``
+    tiles from flat tile ``t0``. It scans all P sorted rects; ``n_valid``
+    (where the kernel stops) changes nothing here, as the culled ones past
+    it have empty rects."""
     _kernels.plain_call("binning")
     P = packed_s.shape[0]
     dev = packed_s.device
@@ -93,21 +100,24 @@ def build_table_plain(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
     rank = torch.zeros((P, D), dtype=torch.int64, device=dev)
     totals = torch.zeros(num_tiles, dtype=torch.int64, device=dev)
     Tc = _tile_chunk(num_tiles, P)
-    for t0 in range(0, num_tiles, Tc):
-        tiles = torch.arange(t0, min(t0 + Tc, num_tiles), dtype=torch.int32, device=dev)
+    for c0 in range(0, num_tiles, Tc):
+        # global tiles t0 + c0 ...; one past the grid lies below every rect
+        tiles = torch.arange(t0 + c0, t0 + min(c0 + Tc, num_tiles), dtype=torch.int32,
+                             device=dev)
         ctx, cty = tiles % tiles_x, tiles // tiles_x
         mask = ((ctx[None, :] >= xmin[:, None]) & (ctx[None, :] < xmax[:, None])
                 & (cty[None, :] >= ymin[:, None]) & (cty[None, :] < ymax[:, None]))
         mi = mask.to(torch.int64)
         excl = torch.cumsum(mi, dim=0) - mi                        # [P, Tc]
-        local = (tid - t0).to(torch.int64)
+        local = (tid - t0 - c0).to(torch.int64)
         inside = (local >= 0) & (local < tiles.shape[0])
         got = torch.gather(excl, 1, torch.where(inside, local, 0))
         rank = torch.where(inside, got, rank)
-        totals[t0:t0 + tiles.shape[0]] = mi.sum(dim=0)
+        totals[c0:c0 + tiles.shape[0]] = mi.sum(dim=0)
 
-    keep = entry_valid & (rank < K)
-    slot = tid.to(torch.int64) * K + rank
+    row = tid.to(torch.int64) - t0
+    keep = entry_valid & (rank < K) & (row >= 0) & (row < num_tiles)
+    slot = row * K + rank
     table = torch.full((num_tiles * K,), P, dtype=torch.int32, device=dev)
     gid = order[:, None].expand(P, D)
     table[slot[keep]] = gid[keep]
@@ -115,14 +125,17 @@ def build_table_plain(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
 
 
 def build_table(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
-                K: int, D: int) -> tuple[torch.Tensor, torch.Tensor]:
+                K: int, D: int, t0: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel K2 on CUDA tensors, its plain version on CPU tensors.
 
     packed_s, order: [P] int32 depth-sorted packed rects and Gaussian ids
     (valid ones first); n_valid: 0-d int32 count of valid ones. Returns
-    (table [num_tiles*K] int32, sentinel P; totals [num_tiles] int32)."""
+    (table [num_tiles*K] int32, sentinel P; totals [num_tiles] int32) for
+    the ``num_tiles`` tiles from flat tile ``t0`` (0 for a whole view)."""
+    if t0 < 0:
+        raise ValueError(f"tile offset {t0} < 0")
     if not packed_s.is_cuda:
-        return build_table_plain(packed_s, order, n_valid, num_tiles, tiles_x, K, D)
+        return build_table_plain(packed_s, order, n_valid, num_tiles, tiles_x, K, D, t0=t0)
     P = packed_s.shape[0]
     _kernels.check(packed_s, "packed_s", torch.int32, (P,))
     _kernels.check(order, "order", torch.int32, (P,))
@@ -136,8 +149,8 @@ def build_table(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
     _kernels.launch(
         "binning", "sdpgs_bin_table",
         _kernels.ptr(packed_s), _kernels.ptr(order), _kernels.ptr(n_valid),
-        _kernels.ptr(table), _kernels.ptr(totals), _kernels.ptr(cover), P, num_tiles, tiles_x,
-        K, D, _kernels.stream(dev),
+        _kernels.ptr(table), _kernels.ptr(totals), _kernels.ptr(cover), P, num_tiles, t0,
+        tiles_x, K, D, _kernels.stream(dev),
     )
     return table, totals
 
@@ -163,11 +176,13 @@ def sort_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig
     return packed[order].contiguous(), order.to(torch.int32), n_valid
 
 
-def bin_gaussians(prep: Preprocessed, width: int, height: int,
-                  cfg: RasterizeConfig) -> Binning:
-    """Depth sort, then the [T, K] table, counts and capacity telemetry."""
+def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig,
+                  tile_range: tuple[int, int] | None = None) -> Binning:
+    """Depth sort, then the [T, K] table, counts and capacity telemetry;
+    with ``tile_range=(t0, n_local)`` the rows of those tiles only (T =
+    n_local), their overflow, and the view's clipped and num_entries."""
     tiles_x, tiles_y = tile_grid(width, height, cfg.tile)
-    num_tiles = tiles_x * tiles_y
+    t0, num_tiles = (0, tiles_x * tiles_y) if tile_range is None else tile_range
     K = cfg.max_per_tile
     D = cfg.max_tiles_per_gaussian
     packed_s, order, n_valid = sort_rects(prep, width, height, cfg)
@@ -177,7 +192,7 @@ def bin_gaussians(prep: Preprocessed, width: int, height: int,
     clipped = torch.clamp_min(count - D, 0).sum(dtype=torch.int32)
     num_entries = torch.clamp_max(count, D).sum(dtype=torch.int32)
 
-    table, totals = build_table(packed_s, order, n_valid, num_tiles, tiles_x, K, D)
+    table, totals = build_table(packed_s, order, n_valid, num_tiles, tiles_x, K, D, t0=t0)
     return Binning(
         tile_index=table.reshape(num_tiles, K),
         tile_counts=torch.clamp_max(totals, K),

@@ -43,6 +43,20 @@ def tile_pixel_coords(num_tiles_x: int, num_tiles_y: int, tile: int,
     return origin_x + lx.reshape(1, -1), origin_y + ly.reshape(1, -1)
 
 
+def tile_pixel_coords_range(t0: int, n_local: int, num_tiles_x: int, tile: int,
+                            device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-center coordinates for the ``n_local`` tiles from flat tile
+    ``t0`` (a tile-sharded render's range; composite_xla.py:59-75):
+    ([n_local, npix] x, [n_local, npix] y)."""
+    f32 = torch.float32
+    tiles = t0 + torch.arange(n_local, dtype=torch.int32, device=device)
+    origin_x = (tiles % num_tiles_x).to(f32)[:, None] * tile
+    origin_y = (tiles // num_tiles_x).to(f32)[:, None] * tile
+    ly, lx = torch.meshgrid(torch.arange(tile, dtype=f32, device=device),
+                            torch.arange(tile, dtype=f32, device=device), indexing="ij")
+    return origin_x + lx.reshape(1, -1), origin_y + ly.reshape(1, -1)
+
+
 def composite_tiles(
     xy: torch.Tensor,        # [T, K, 2] gathered Gaussian centers (pixels)
     conic: torch.Tensor,     # [T, K, 3]

@@ -9,6 +9,11 @@ version gathers [T, K, 13] and runs ``composite.composite_tiles``, and
 autograd differentiates it. On CUDA tensors :func:`composite_gather` is an
 ``autograd.Function`` (K3 forward, K5 backward); on CPU tensors autograd
 runs through the plain version.
+
+A table of T rows holds the tiles from flat tile ``t0`` of the grid (0 and
+every tile for a whole view; a tile-sharded render passes its range): pixel
+coordinates come from the global tile, and a row past the grid, which
+binning leaves empty, composites nothing (values 0, final_t 1).
 """
 
 from __future__ import annotations
@@ -18,7 +23,11 @@ from torch.autograd.function import once_differentiable
 
 from sdpgs_torch import _kernels
 from sdpgs_torch.config import RasterizeConfig
-from sdpgs_torch.ops.rasterize.composite import TileOutputs, composite_tiles, tile_pixel_coords
+from sdpgs_torch.ops.rasterize.composite import (
+    TileOutputs,
+    composite_tiles,
+    tile_pixel_coords_range,
+)
 
 NPAY = 13   # xy(2) conic(3) opacity*valid(1) rgb(3) depth(1) feature(3)
 NCH = 7     # composited channels: rgb, depth, feature
@@ -30,20 +39,33 @@ def _check_payload(payload, num_gaussians: int) -> None:
                          f"sentinel row last), got {list(payload.shape)}")
 
 
+def _grid_rows(table, tiles_x: int, tiles_y: int, t0: int, num_gaussians: int):
+    """The table as K3 and K5 read it: rows past the grid hold the sentinel."""
+    T = table.shape[0]
+    past = min(T, max(0, t0 + T - tiles_x * tiles_y))
+    if past:
+        table = table.clone()
+        table[T - past:] = num_gaussians
+    return table
+
+
 def composite_gather_plain(payload, table, counts, tiles_x: int, tiles_y: int,
-                           cfg: RasterizeConfig, num_gaussians: int) -> TileOutputs:
+                           cfg: RasterizeConfig, num_gaussians: int,
+                           t0: int = 0) -> TileOutputs:
     """Plain PyTorch version of K3: gather, then composite every slot (the
     sentinel slots past ``counts`` have zero opacity and add nothing)."""
     _check_payload(payload, num_gaussians)
     _kernels.plain_call("composite")
+    table = _grid_rows(table, tiles_x, tiles_y, t0, num_gaussians)
     g = payload[table.long()]                                  # [T, K, 13]
-    px, py = tile_pixel_coords(tiles_x, tiles_y, cfg.tile, device=payload.device)
+    px, py = tile_pixel_coords_range(t0, table.shape[0], tiles_x, cfg.tile,
+                                     device=payload.device)
     return composite_tiles(g[..., 0:2], g[..., 2:5], g[..., 5], g[..., 6:13], px, py, cfg)
 
 
 def composite_vjp_plain(payload, table, counts, tiles_x: int, tiles_y: int,
                         cfg: RasterizeConfig, num_gaussians: int, g_values, g_final_t,
-                        tiles_per_pass: int | None = None) -> torch.Tensor:
+                        tiles_per_pass: int | None = None, t0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K5: autograd's gradient of the payload
     [P+1, 13] through the gather and :func:`composite_tiles`, at cotangents
     g_values [T, tile^2, 7] and g_final_t [T, tile^2]. Tiles are
@@ -51,14 +73,15 @@ def composite_vjp_plain(payload, table, counts, tiles_x: int, tiles_y: int,
     differentiating that many tiles at a time."""
     _check_payload(payload, num_gaussians)
     _kernels.plain_call("composite_bwd")
+    table = _grid_rows(table, tiles_x, tiles_y, t0, num_gaussians)
     T = table.shape[0]
     step = T if tiles_per_pass is None else tiles_per_pass
-    px, py = tile_pixel_coords(tiles_x, tiles_y, cfg.tile, device=payload.device)
+    px, py = tile_pixel_coords_range(t0, T, tiles_x, cfg.tile, device=payload.device)
     d_payload = torch.zeros_like(payload)
     with torch.enable_grad():
         pay = payload.detach().requires_grad_()
-        for t0 in range(0, T, step):
-            sl = slice(t0, min(T, t0 + step))
+        for r0 in range(0, T, step):
+            sl = slice(r0, min(T, r0 + step))
             g = pay[table[sl].long()]
             out = composite_tiles(g[..., 0:2], g[..., 2:5], g[..., 5], g[..., 6:13],
                                   px[sl], py[sl], cfg)
@@ -67,10 +90,12 @@ def composite_vjp_plain(payload, table, counts, tiles_x: int, tiles_y: int,
     return d_payload
 
 
-def _check_tiles(payload, table, counts, tiles_x: int, tiles_y: int, cfg, num_gaussians):
+def _check_tiles(payload, table, counts, tiles_x: int, tiles_y: int, cfg, num_gaussians,
+                 t0: int):
     T, K = table.shape
-    if T != tiles_x * tiles_y:
-        raise ValueError(f"table has {T} tiles, grid has {tiles_x * tiles_y}")
+    if t0 < 0 or T > tiles_x * tiles_y:
+        raise ValueError(f"table of {T} tiles from tile {t0}: a range of the grid's "
+                         f"{tiles_x * tiles_y} tiles needs t0 >= 0 and at most that many rows")
     if cfg.tile * cfg.tile > 1024:
         raise ValueError(f"tile {cfg.tile}: one thread per pixel needs tile^2 <= 1024")
     _check_payload(payload, num_gaussians)
@@ -81,13 +106,13 @@ def _check_tiles(payload, table, counts, tiles_x: int, tiles_y: int, cfg, num_ga
 
 
 def composite_gather_fwd(payload, table, counts, tiles_x: int, tiles_y: int,
-                         cfg: RasterizeConfig, num_gaussians: int, stats=None):
+                         cfg: RasterizeConfig, num_gaussians: int, stats=None, t0: int = 0):
     """Launch K3 on CUDA tensors autograd does not track. Returns
     (TileOutputs with n_visit, last_contrib [T, tile^2] int32: one past the
     last entry each pixel added, where K5 starts). ``stats``, a zeroed
     int64 [2] tensor, receives the (entry, pixel) pairs K3 tested and those
-    that contributed, when given."""
-    _check_tiles(payload, table, counts, tiles_x, tiles_y, cfg, num_gaussians)
+    that contributed, when given. The T rows are the tiles from ``t0``."""
+    _check_tiles(payload, table, counts, tiles_x, tiles_y, cfg, num_gaussians, t0)
     T, K = table.shape
     npix = cfg.tile * cfg.tile
     dev = payload.device
@@ -104,7 +129,8 @@ def composite_gather_fwd(payload, table, counts, tiles_x: int, tiles_y: int,
         outs.append(_kernels.ptr(stats))
     _kernels.launch(
         "composite", fn, _kernels.ptr(payload), _kernels.ptr(table), _kernels.ptr(counts),
-        *outs, num_gaussians, T, tiles_x, cfg.tile, K, float(cfg.alpha_min),
+        *outs, num_gaussians, T, t0, tiles_x * tiles_y, tiles_x, cfg.tile, K,
+        float(cfg.alpha_min),
         float(cfg.alpha_max), float(cfg.transmittance_min), _kernels.stream(dev),
     )
     return TileOutputs(values=values, final_t=final_t, n_visit=n_visit), last
@@ -112,14 +138,14 @@ def composite_gather_fwd(payload, table, counts, tiles_x: int, tiles_y: int,
 
 def composite_gather_bwd(payload, table, final_t, last, g_values, g_final_t,
                          tiles_x: int, tiles_y: int, cfg: RasterizeConfig,
-                         num_gaussians: int, stats=None) -> torch.Tensor:
+                         num_gaussians: int, stats=None, t0: int = 0) -> torch.Tensor:
     """Launch K5 on CUDA tensors autograd does not track: the payload
     gradient [P+1, 13] (row P zero) at cotangents g_values [T, tile^2, 7]
     and g_final_t [T, tile^2], from K3's final_t and last_contrib.
     ``stats``, a zeroed int64 [3] tensor, receives the contributing (entry,
     pixel) pairs, those of them clamped at ``alpha_max`` and the pairs K5
-    tested, when given."""
-    _check_tiles(payload, table, None, tiles_x, tiles_y, cfg, num_gaussians)
+    tested, when given. The T rows are the tiles from ``t0``."""
+    _check_tiles(payload, table, None, tiles_x, tiles_y, cfg, num_gaussians, t0)
     T = table.shape[0]
     npix = cfg.tile * cfg.tile
     if npix % 32:
@@ -136,8 +162,8 @@ def composite_gather_bwd(payload, table, final_t, last, g_values, g_final_t,
         "composite_bwd", "sdpgs_composite_bwd",
         _kernels.ptr(payload), _kernels.ptr(table), _kernels.ptr(final_t),
         _kernels.ptr(last), _kernels.ptr(g_values), _kernels.ptr(g_final_t),
-        _kernels.ptr(d_payload), _kernels.ptr(stats), num_gaussians, T, tiles_x, cfg.tile,
-        table.shape[1], float(cfg.alpha_min), float(cfg.alpha_max),
+        _kernels.ptr(d_payload), _kernels.ptr(stats), num_gaussians, T, t0, tiles_x * tiles_y,
+        tiles_x, cfg.tile, table.shape[1], float(cfg.alpha_min), float(cfg.alpha_max),
         _kernels.stream(payload.device),
     )
     return d_payload
@@ -147,12 +173,13 @@ class _CompositeGather(torch.autograd.Function):
     """K3 forward, K5 backward; the launchers get detached tensors."""
 
     @staticmethod
-    def forward(ctx, payload, table, counts, tiles_x, tiles_y, cfg, num_gaussians):
+    def forward(ctx, payload, table, counts, tiles_x, tiles_y, cfg, num_gaussians, t0):
         payload = payload.detach()
         out, last = composite_gather_fwd(payload, table, counts, tiles_x, tiles_y, cfg,
-                                         num_gaussians)
+                                         num_gaussians, t0=t0)
         ctx.save_for_backward(payload, table, out.final_t, last)
         ctx.args = (tiles_x, tiles_y, cfg, num_gaussians)
+        ctx.t0 = t0
         ctx.mark_non_differentiable(out.n_visit)
         return out.values, out.final_t, out.n_visit
 
@@ -164,22 +191,22 @@ class _CompositeGather(torch.autograd.Function):
         payload, table, final_t, last = (t.detach() for t in ctx.saved_tensors)
         d_payload = composite_gather_bwd(payload, table, final_t, last,
                                          g_values.contiguous(), g_final_t.contiguous(),
-                                         *ctx.args)
-        return d_payload, None, None, None, None, None, None
+                                         *ctx.args, t0=ctx.t0)
+        return d_payload, None, None, None, None, None, None, None
 
 
 def composite_gather(payload, table, counts, tiles_x: int, tiles_y: int,
-                     cfg: RasterizeConfig, num_gaussians: int) -> TileOutputs:
+                     cfg: RasterizeConfig, num_gaussians: int, t0: int = 0) -> TileOutputs:
     """K3 (backward K5) on CUDA tensors, the plain version on CPU tensors.
 
     payload [P+1, 13] f32 with P = ``num_gaussians`` (row P is the zero
-    sentinel), table [T, K] int32 with entries in [0, P], counts [T] int32
-    (<= K). Returns TileOutputs with values [T, tile^2, 7] and final_t
-    [T, tile^2], differentiable with respect to the payload; the kernel
-    also fills n_visit."""
+    sentinel), table [T, K] int32 with entries in [0, P] for the T tiles
+    from flat tile ``t0``, counts [T] int32 (<= K). Returns TileOutputs with
+    values [T, tile^2, 7] and final_t [T, tile^2], differentiable with
+    respect to the payload; the kernel also fills n_visit."""
     if not payload.is_cuda:
         return composite_gather_plain(payload, table, counts, tiles_x, tiles_y, cfg,
-                                      num_gaussians)
+                                      num_gaussians, t0=t0)
     values, final_t, n_visit = _CompositeGather.apply(payload, table, counts, tiles_x,
-                                                      tiles_y, cfg, num_gaussians)
+                                                      tiles_y, cfg, num_gaussians, t0)
     return TileOutputs(values=values, final_t=final_t, n_visit=n_visit)

@@ -9,7 +9,7 @@ through the payload (K3/K5 on CUDA); binning consumes detached geometry.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -66,12 +66,18 @@ def make_payload(prep: Preprocessed, opacity, color, feature) -> torch.Tensor:
 def rasterize_tiles(
     xyz, cov3d, opacity, color, feature, alive, cam: Camera, cfg: RasterizeConfig,
     means2d_offset=None, feature_weight=None, prep: Optional[Preprocessed] = None,
+    tile_range: Optional[tuple[int, int]] = None,
+    payload_grad: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> tuple[TileOutputs, binning_lib.Binning, Preprocessed]:
-    """Preprocess -> bin -> gather + composite for every tile.
+    """Preprocess -> bin -> gather + composite for every tile, or with
+    ``tile_range=(t0, n_local)`` for the ``n_local`` tiles from flat tile
+    ``t0`` (a tile-sharded render's shard; JAX rasterizer.py:95-200).
 
     ``prep``: precomputed screen-space quantities (the fused kernel K1,
     ``preprocess_cuda.preprocess_color``); otherwise the plain preprocess
-    from ``cov3d``."""
+    from ``cov3d``. ``payload_grad`` wraps the [P+1, 13] payload before the
+    compositing: the tile-sharded render passes the sum of its gradient over
+    the tile axis there."""
     if prep is None:
         prep = preprocess(xyz, cov3d, cam, alive, near=cfg.near, low_pass=cfg.low_pass)
     mean2d = prep.mean2d
@@ -80,13 +86,15 @@ def rasterize_tiles(
     # binning consumes geometry only; gradients flow through the payload
     bins = binning_lib.bin_gaussians(
         Preprocessed(*(t.detach() for t in prep._replace(mean2d=mean2d))),
-        cam.width, cam.height, cfg)
+        cam.width, cam.height, cfg, tile_range=tile_range)
     if feature_weight is not None:
         feature = feature * feature_weight[:, None]
     payload = make_payload(prep._replace(mean2d=mean2d), opacity, color, feature)
+    if payload_grad is not None:
+        payload = payload_grad(payload)
     tiles_x, tiles_y = binning_lib.tile_grid(cam.width, cam.height, cfg.tile)
-    out = composite_gather(payload, bins.tile_index, bins.tile_counts,
-                           tiles_x, tiles_y, cfg, xyz.shape[0])
+    out = composite_gather(payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
+                           xyz.shape[0], t0=0 if tile_range is None else tile_range[0])
     return out, bins, prep
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,14 +96,20 @@ def learning_rates(opt_cfg, step: int, spatial_lr_scale: float) -> Dict[str, flo
 @torch.no_grad()
 def adam_update(g, grads: Dict[str, torch.Tensor], state: GaussianAdamState,
                 lrs: Dict[str, float], b1: float = 0.9, b2: float = 0.999,
-                eps: float = 1e-15) -> GaussianAdamState:
+                eps: float = 1e-15, slots: Optional[Tuple[int, int]] = None
+                ) -> GaussianAdamState:
     """One Adam step: updates ``g``'s parameters and the moments in place
-    and returns the state with its step advanced."""
+    and returns the state with its step advanced. With ``slots=(lo, hi)``
+    (ZeRO-1 on the mesh's ``gauss`` axis) the moments hold those slots'
+    rows only, and only those rows of the parameters are updated, from the
+    same rows of the whole gradients; the update is elementwise, so each
+    row equals the whole update's bit for bit."""
     step = state.step + 1
     bc1 = float(1.0 - np.float32(b1) ** np.float32(step))
     bc2 = float(1.0 - np.float32(b2) ** np.float32(step))
+    rows = slice(None) if slots is None else slice(*slots)
     for k in TRAINABLE:
-        p, grad = getattr(g, k), grads[k]
+        p, grad = getattr(g, k)[rows], grads[k][rows]
         mu, nu = state.mu[k], state.nu[k]
         mu.mul_(b1).add_((1 - b1) * grad)
         nu.mul_(b2).add_((1 - b2) * grad * grad)

@@ -51,19 +51,36 @@ def add_densification_stats(stats: DensifyStats, viewspace_grad: torch.Tensor,
                                            radii[None], width, height)
 
 
+def densification_increments(viewspace_grads: torch.Tensor, visibility: torch.Tensor,
+                             radii: torch.Tensor, width: int, height: int) -> DensifyStats:
+    """What a batch of views ([V, P, 2] gradients, [V, P] visibility and
+    radii) adds to the statistics: the sums over the views of the gradient
+    norms and of the visibility, and the views' largest radius. On a mesh
+    the sums are summed and the radius maxed over the ``data`` axis; the
+    gradients must be whole (summed over the tiles) before the norm."""
+    gx = viewspace_grads[..., 0] * (0.5 * width)
+    gy = viewspace_grads[..., 1] * (0.5 * height)
+    norm = torch.sqrt(gx * gx + gy * gy)
+    vis = visibility.to(torch.float32)
+    return DensifyStats(xyz_gradient_accum=torch.sum(norm * vis, dim=0),
+                        denom=torch.sum(vis, dim=0),
+                        max_radii2d=torch.amax(radii * vis, dim=0))
+
+
 def add_densification_stats_batched(stats: DensifyStats, viewspace_grads: torch.Tensor,
                                     visibility: torch.Tensor, radii: torch.Tensor,
                                     width: int, height: int) -> DensifyStats:
     """A batch of views at once: [V, P, 2] gradients, [V, P] visibility and
     radii; the same accumulation as V calls of add_densification_stats."""
-    gx = viewspace_grads[..., 0] * (0.5 * width)
-    gy = viewspace_grads[..., 1] * (0.5 * height)
-    norm = torch.sqrt(gx * gx + gy * gy)
-    vis = visibility.to(torch.float32)
+    return apply_increments(stats, densification_increments(viewspace_grads, visibility,
+                                                            radii, width, height))
+
+
+def apply_increments(stats: DensifyStats, inc: DensifyStats) -> DensifyStats:
     return DensifyStats(
-        xyz_gradient_accum=stats.xyz_gradient_accum + torch.sum(norm * vis, dim=0),
-        denom=stats.denom + torch.sum(vis, dim=0),
-        max_radii2d=torch.maximum(stats.max_radii2d, torch.amax(radii * vis, dim=0)),
+        xyz_gradient_accum=stats.xyz_gradient_accum + inc.xyz_gradient_accum,
+        denom=stats.denom + inc.denom,
+        max_radii2d=torch.maximum(stats.max_radii2d, inc.max_radii2d),
     )
 
 
@@ -199,6 +216,8 @@ def reset_opacity(g, opt_state, ceiling: float = 0.01):
     JAX computes it (``torch.logit`` would clamp with an eps)."""
     act = torch.clamp_max(torch.sigmoid(g.opacity), ceiling)
     g.opacity.copy_(torch.log(act / (1.0 - act)))
-    zero_state_rows(opt_state, torch.ones((g.capacity,), dtype=torch.float32, device=g.device),
+    # every row of the moments this rank holds (all of them, or its slots)
+    rows = opt_state.mu["opacity"].shape[0]
+    zero_state_rows(opt_state, torch.ones((rows,), dtype=torch.float32, device=g.device),
                     keys=("opacity",))
     return g, opt_state

@@ -8,6 +8,16 @@ its prefetched reprojection z-buffers, densify and prune every
 reacts to the binning telemetry, evaluation, checkpoints and the persisted
 report. The host reads the device only at log points, events and
 evaluations: the steps are host-bound already.
+
+With ``cfg.mesh_data * mesh_gauss * mesh_tile > 1`` every rank of an
+initialized ``torch.distributed`` group of that many processes runs one
+Trainer (JAX loop.py:91-119, 150-210, 260-310, 470-480): the state is
+sharded (``parallel/sharding.py``), every rank draws the same views and
+pseudo cameras from the same seed and takes its share of each batch, the
+step is the mesh's, densify and prune (and the k-NN) run on the gathered
+state with the same generator on every rank before it is split again, the
+capacity ladder acts on telemetry maxed over the ranks so that all grow
+together, and rank 0 alone writes checkpoints and the model directory.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sdpgs_torch import default_device
 from sdpgs_torch.config import TrainConfig
@@ -91,15 +102,23 @@ class Trainer:
     ``cfg.model.dpt_weights`` names a converted DPT checkpoint, and without
     that the pseudo steps keep the reprojection term alone."""
 
+    # one card unless __init__ forms a mesh; rank 0 prints and writes
+    mesh = None
+    is_main = True
     MAX_PER_TILE_CEILING = 8192
     MAX_GRAD_WINDOW_SLACK = 2.0
     MAX_TILES_PER_GAUSSIAN_CEILING = 32
 
     def __init__(self, cfg: TrainConfig, scene=None, mono_depth_fn=None, device=None):
-        if cfg.mesh_data * cfg.mesh_gauss * cfg.mesh_tile > 1:
-            raise NotImplementedError(
-                "mesh_data/mesh_gauss/mesh_tile > 1: multi-card training comes with the "
-                "parallelism slice (ROADMAP.md A5)")
+        n_mesh = cfg.mesh_data * cfg.mesh_gauss * cfg.mesh_tile
+        if n_mesh > 1:
+            ranks = dist.get_world_size() if dist.is_initialized() else 1
+            if ranks != n_mesh:
+                raise ValueError(f"mesh {cfg.mesh_data}x{cfg.mesh_gauss}x{cfg.mesh_tile} needs "
+                                 f"{n_mesh} torch.distributed ranks, have {ranks}")
+            if cfg.views_per_batch % cfg.mesh_data != 0:
+                raise ValueError(f"views_per_batch={cfg.views_per_batch} must be a multiple "
+                                 f"of mesh_data={cfg.mesh_data}")
         self.device = dev = default_device(device)
         self.cfg = cfg
         self.scene = scene = Scene(cfg, device=dev) if scene is None else scene
@@ -112,6 +131,16 @@ class Trainer:
                 resize_method=cfg.model.dpt_resize, device=dev)
         self.mono_depth_fn = mono_depth_fn if callable(mono_depth_fn) else None
         self.state = TrainState.create(copy.deepcopy(scene.gaussians), seed=cfg.seed, device=dev)
+        # the device mesh: DP (views over data) x ZeRO (moments and statistics
+        # over gauss) x tile-sharded rendering
+        self._shardings = None
+        if n_mesh > 1:
+            from sdpgs_torch.parallel import make_mesh, shard_train_state, state_shardings
+
+            self.mesh = make_mesh(data=cfg.mesh_data, gauss=cfg.mesh_gauss, tile=cfg.mesh_tile)
+            self._shardings = state_shardings(self.mesh, self.state)
+            self.state = shard_train_state(self.state, self.mesh)
+            self.is_main = dist.get_rank() == 0
 
         from sdpgs_torch.eval.metrics import make_lpips_fn
 
@@ -144,7 +173,8 @@ class Trainer:
         key = (sh_degree, with_pseudo)
         if key not in self._steps:
             self._steps[key] = make_train_step(self.cfg, sh_degree, with_pseudo=with_pseudo,
-                                               mono_depth_fn=self.mono_depth_fn)
+                                               mono_depth_fn=self.mono_depth_fn,
+                                               tile_mesh=self.mesh, out_shardings=self._shardings)
         return self._steps[key]
 
     def _next_view(self) -> int:
@@ -155,11 +185,19 @@ class Trainer:
         return self._view_stack.pop(int(i))
 
     def _next_batch(self) -> ViewBatch:
-        V = min(max(1, int(self.cfg.views_per_batch)), len(self.scene.train_cameras))
+        V = max(1, int(self.cfg.views_per_batch))
+        if self.mesh is None:
+            V = min(V, len(self.scene.train_cameras))
+        # under a mesh V stays a multiple of mesh_data even when the scene
+        # has fewer train views (few-shot: 3); a batch may repeat a view
         idx = tuple(sorted(self._next_view() for _ in range(V)))
         if idx not in self._batch_cache:
-            self._batch_cache[idx] = build_view_batch(self.scene.train_cameras, list(idx),
-                                                      device=self.device)
+            batch = build_view_batch(self.scene.train_cameras, list(idx), device=self.device)
+            if self.mesh is not None:
+                from sdpgs_torch.parallel import shard_batch
+
+                batch = shard_batch(batch, self.mesh)
+            self._batch_cache[idx] = batch
         return self._batch_cache[idx]
 
     def _next_pseudo(self) -> int:
@@ -193,7 +231,7 @@ class Trainer:
             return None
         if iteration <= opt.densify_from_iter or iteration % opt.densification_interval != 0:
             return None
-        state = self.state
+        state = self._whole_state()
         g = state.gaussians
         run_prox = iteration < opt.proximity_until_iter
         knn_dist = knn_idx = None
@@ -209,7 +247,29 @@ class Trainer:
             grad_threshold=opt.densify_grad_threshold, min_opacity=opt.prune_threshold,
             extent=float(self.scene.cameras_extent), percent_dense=opt.percent_dense,
             run_proximity=run_prox, knn_dist=knn_dist, knn_idx=knn_idx)
+        if self.mesh is not None:
+            from sdpgs_torch.parallel import shard_train_state
+
+            self.state = shard_train_state(state, self.mesh)
         return info
+
+    def _whole_state(self) -> TrainState:
+        """The state with its moments and statistics whole (gathered over the
+        mesh's ``gauss`` axis on every rank)."""
+        if self.mesh is None:
+            return self.state
+        from sdpgs_torch.parallel import gather_train_state
+
+        return gather_train_state(self.state, self.mesh)
+
+    def save_checkpoint(self, checkpoint_dir, step: int) -> None:
+        """``<checkpoint_dir>/ckpt_<step>.pt`` of the whole state, written by
+        rank 0 once every rank has gathered it."""
+        state = self._whole_state()
+        if self.is_main:
+            save_checkpoint(checkpoint_dir, state, step)
+        if self.mesh is not None:
+            dist.barrier()
 
     def _maybe_reset_opacity(self, iteration: int) -> None:
         opt = self.cfg.optim
@@ -218,7 +278,8 @@ class Trainer:
             reset_opacity(self.state.gaussians, self.state.opt_state)
 
     def _set_raster(self, new, msg: str) -> None:
-        print(f"{msg} (new step)", flush=True)
+        if self.is_main:
+            print(f"{msg} (new step)", flush=True)
         self.cfg.raster = new
         self._steps.clear()
 
@@ -265,11 +326,17 @@ class Trainer:
                               f"D={r.max_tiles_per_gaussian} -> {new.max_tiles_per_gaussian}")
 
     def _react_to_telemetry(self) -> Tuple[int, int]:
-        """Read the running maxima of the drops since the last look, grow
-        the capacities they call for, and reset them. Returns (overflow,
+        """Read the running maxima of the drops since the last look (maxed
+        over the ranks of a mesh, so that every rank grows alike), grow the
+        capacities they call for, and reset them. Returns (overflow,
         clipped)."""
         s = self.state
-        mo, mc, ms = int(s.max_overflow), int(s.max_clipped), int(s.max_slab)
+        seen = torch.stack([s.max_overflow, s.max_clipped, s.max_slab])
+        if self.mesh is not None:
+            from sdpgs_torch.parallel import comm
+
+            comm.all_max(seen, dist.group.WORLD)
+        mo, mc, ms = (int(v) for v in seen.tolist())
         if mo > 0:
             self._maybe_grow_max_per_tile(mo)
         if mc > 0:
@@ -286,7 +353,12 @@ class Trainer:
         --start_checkpoint, train.py:46-48)."""
         from sdpgs_torch.train.state import restore_checkpoint
 
-        self.state = restore_checkpoint(checkpoint_dir, step, self.state)
+        state = restore_checkpoint(checkpoint_dir, step, self._whole_state())
+        if self.mesh is not None:     # every rank reads it, then takes its share
+            from sdpgs_torch.parallel import shard_train_state
+
+            state = shard_train_state(state, self.mesh)
+        self.state = state
 
     # ---- main loop -------------------------------------------------------
     def train(self, iterations: Optional[int] = None, log_every: int = 100, on_eval=None):
@@ -328,9 +400,10 @@ class Trainer:
                 m = {k: float(getattr(metrics, k)) for k in ("loss", "l1", "psnr")}
                 alive = int(metrics.num_alive)
                 rate = (iteration - first_iter + 1) / (time.time() - t_start)
-                print(f"[{iteration}/{iterations}] loss={m['loss']:.5f} l1={m['l1']:.5f} "
-                      f"psnr={m['psnr']:.2f} alive={alive} overflow={mo} clipped={mc} "
-                      f"({rate:.2f} it/s)", flush=True)
+                if self.is_main:
+                    print(f"[{iteration}/{iterations}] loss={m['loss']:.5f} l1={m['l1']:.5f} "
+                          f"psnr={m['psnr']:.2f} alive={alive} overflow={mo} clipped={mc} "
+                          f"({rate:.2f} it/s)", flush=True)
                 history.append({"iter": iteration, "loss": m["loss"], "psnr": m["psnr"],
                                 "alive": alive})
 
@@ -339,11 +412,11 @@ class Trainer:
                     on_eval(self, iteration)
                 else:
                     self._training_report(iteration, sh_degree)
-            if self.scene.model_path and iteration in opt.save_iterations:
+            if self.scene.model_path and iteration in opt.save_iterations and self.is_main:
                 self.scene.save(iteration, self.state.gaussians)
             if self.scene.model_path and iteration in opt.checkpoint_iterations:
-                save_checkpoint(Path(self.scene.model_path) / "checkpoints", self.state, iteration)
-        if self.scene.model_path:
+                self.save_checkpoint(Path(self.scene.model_path) / "checkpoints", iteration)
+        if self.scene.model_path and self.is_main:
             mp = Path(self.scene.model_path)
             mp.mkdir(parents=True, exist_ok=True)
             (mp / "training_history.json").write_text(json.dumps(history, indent=2))
@@ -388,8 +461,9 @@ class Trainer:
             res = self.evaluate(cameras=cams, sh_degree=sh_degree)
             report[name] = res
             extra = f" LPIPS {res['lpips']:.4f}" if "lpips" in res else ""
-            print(f"\n[ITER {iteration}] Evaluating {name}: L1 {res['l1']:.5f} PSNR "
-                  f"{res['psnr']:.3f} SSIM {res['ssim']:.4f}{extra}", flush=True)
+            if self.is_main:
+                print(f"\n[ITER {iteration}] Evaluating {name}: L1 {res['l1']:.5f} PSNR "
+                      f"{res['psnr']:.3f} SSIM {res['ssim']:.4f}{extra}", flush=True)
         report["total_points"] = self.state.gaussians.num_alive()
         self.eval_history.append(report)
         self._persist_results()
@@ -397,8 +471,8 @@ class Trainer:
 
     def _persist_results(self) -> None:
         """Write the eval history to the model dir (the reference's
-        tensorboard role)."""
-        if not self.scene.model_path:
+        tensorboard role); rank 0 alone on a mesh."""
+        if not self.scene.model_path or not self.is_main:
             return
         mp = Path(self.scene.model_path)
         mp.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Mapping
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,9 @@ class TrainState:
     max_overflow: torch.Tensor
     max_clipped: torch.Tensor
     max_slab: torch.Tensor
+    # On a mesh, the Gaussian slots [lo, hi) whose moments and statistics
+    # this rank holds (parallel/sharding.py); None: all of them.
+    slots: Optional[Tuple[int, int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -85,7 +88,10 @@ class TrainState:
         return state
 
     def to_numpy(self) -> dict:
-        """The inverse of :meth:`from_numpy`."""
+        """The inverse of :meth:`from_numpy`; a sharded state is gathered
+        first (``parallel.sharding.gather_train_state``)."""
+        if self.slots is not None:
+            raise ValueError("a sharded state: gather it before converting")
         n = lambda v: v.detach().cpu().numpy()  # noqa: E731
         return dict(
             gaussians=self.gaussians.to_numpy(),

@@ -17,6 +17,17 @@ view through the same ``render``, and takes one backward of the total.
 On CUDA every render runs K1-K3 and the backward K5 and K4. Screen-space
 densification gradients come from differentiating with respect to an
 all-zeros per-view ``means2d_offset`` of the train views only.
+
+On a (data, gauss, tile) mesh (``parallel/``; JAX's ``tile_mesh`` and
+``out_shardings``) each rank takes its share of the views, renders its
+share of each view's tiles (``parallel/tile_shard.py``: the payload
+gradient summed over ``tile`` inside the backward), averages the
+parameter gradients over ``data`` and updates its slots of the moments,
+whose parameter rows are then gathered over ``gauss`` (ZeRO-1). The
+densification increments are summed (the radius maxed) over ``data`` from
+offset gradients already whole over ``tile``, since their norm is not
+linear. Every metric equals the single-card step's: the loss, L1 and PSNR
+averaged over all views, the telemetry maxed over them.
 """
 
 from __future__ import annotations
@@ -41,7 +52,12 @@ from sdpgs_torch.losses import (
     ssim,
 )
 from sdpgs_torch.opt.adam import TRAINABLE, adam_update, learning_rates
-from sdpgs_torch.opt.densify import add_densification_stats_batched
+from sdpgs_torch.opt.densify import (
+    DensifyStats,
+    add_densification_stats_batched,
+    apply_increments,
+    densification_increments,
+)
 from sdpgs_torch.render import render
 from sdpgs_torch.train.state import TrainState
 
@@ -157,21 +173,38 @@ def _pseudo_losses(out, pseudo: PseudoInputs, protos, cfg: TrainConfig, step: in
     return total + 0.5 * loss_scale * opt.depth_pseudo_weight * torch.nan_to_num(reproj)
 
 
+def _render(cam, g, cfg: TrainConfig, bg, sh_degree: int, device, offset=None,
+            tile_mesh=None):
+    """One differentiable render, tile-sharded over ``tile_mesh`` when given
+    (JAX step.py:_render_view)."""
+    conf = g.confidence if cfg.pipeline.use_confidence else None
+    if tile_mesh is not None:
+        from sdpgs_torch.parallel.tile_shard import render_tile_sharded
+
+        return render_tile_sharded(cam, g, cfg.raster, bg, sh_degree, tile_mesh,
+                                   means2d_offset=offset, confidence=conf)
+    return render(cam, g, cfg.raster, bg, sh_degree, means2d_offset=offset, confidence=conf,
+                  device=device)
+
+
 def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: TrainConfig,
                    sh_degree: int, device: torch.device, pseudo: Optional[PseudoInputs] = None,
-                   mono_depth_fn: Optional[Callable] = None) -> Gradients:
+                   mono_depth_fn: Optional[Callable] = None, tile_mesh=None,
+                   data_mesh=None) -> Gradients:
     """Render every view, form the mean combined loss (plus the pseudo-view
     terms when ``pseudo`` is given) and take its one backward with respect
-    to the trainable fields and the train views' offsets."""
+    to the trainable fields and the train views' offsets. ``tile_mesh``
+    shards each render's tiles; ``data_mesh``, a mesh whose ``data`` axis
+    split the batch, gives the pseudo branch its train view from the rank
+    that holds it."""
     g = state.gaussians
     params = [getattr(g, k) for k in TRAINABLE]
-    conf = g.confidence if cfg.pipeline.use_confidence else None
     offsets = [torch.zeros((g.capacity, 2), dtype=torch.float32, device=device,
                            requires_grad=True) for _ in batch.cameras]
     losses, l1s, images, outs = [], [], [], []
     for v, cam in enumerate(batch.cameras):
-        out = render(cam, g, cfg.raster, bg, sh_degree, means2d_offset=offsets[v],
-                     confidence=conf, device=device)
+        out = _render(cam, g, cfg, bg, sh_degree, device, offset=offsets[v],
+                      tile_mesh=tile_mesh)
         loss_v, (ll1, image) = _view_losses_from_out(
             out, batch.image[v], batch.depth_mono[v], batch.feature[v], batch.seg_map[v],
             prototypes, cfg, state.step)
@@ -183,9 +216,8 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
     if pseudo is not None:
         # no offset: the densification statistics come from the train
         # views only (train.py:218-221)
-        out_ps = render(pseudo.camera, g, cfg.raster, bg, sh_degree, confidence=conf,
-                        device=device)
-        train_feat = outs[pseudo.train_view_idx].feature.permute(2, 0, 1)
+        out_ps = _render(pseudo.camera, g, cfg, bg, sh_degree, device, tile_mesh=tile_mesh)
+        train_feat = _train_feature(outs, pseudo.train_view_idx, cfg, data_mesh)
         loss = loss + _pseudo_losses(out_ps, pseudo, prototypes, cfg, state.step,
                                      mono_depth_fn, train_feature=train_feat)
     grads = torch.autograd.grad(loss, params + offsets, allow_unused=True)
@@ -194,6 +226,23 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
     return Gradients(loss=loss.detach(), params=param_grads,
                      offsets=torch.stack(grads[len(params):]), l1=torch.stack(l1s),
                      images=torch.stack(images), outs=outs)
+
+
+def _train_feature(outs, idx: int, cfg: TrainConfig, data_mesh) -> torch.Tensor:
+    """The [3, H, W] feature render of the batch's view ``idx`` (only its
+    labels are read: pseudo_seg_from_train_view). With the views split over
+    ``data`` the rank that rendered it hands it to the others."""
+    if data_mesh is None or data_mesh.shape["data"] == 1:
+        return outs[idx].feature.permute(2, 0, 1)
+    if not cfg.optim.pseudo_seg_from_train_view:
+        return None
+    from sdpgs_torch.parallel import comm
+
+    owner, local = divmod(idx, len(outs))
+    feat = outs[local].feature.detach().permute(2, 0, 1).contiguous()
+    if data_mesh.coords["data"] != owner:
+        feat = torch.zeros_like(feat)
+    return comm.all_sum(feat, data_mesh.group("data"))
 
 
 def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
@@ -211,11 +260,23 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
     device=None)`` runs on ``device`` (``cuda`` unless the caller asks for
     another), where ``state`` must live; it updates the state's parameters,
     moments and statistics in place under ``torch.no_grad`` and returns
-    ``(state, StepMetrics)``."""
-    if tile_mesh is not None or out_shardings is not None:
-        raise NotImplementedError(
-            "tile_mesh / out_shardings: multi-card training comes with the parallelism "
-            "slice (ROADMAP.md A5)")
+    ``(state, StepMetrics)``.
+
+    ``tile_mesh`` (a ``parallel.Mesh`` with a ``tile`` axis) renders each
+    view tile-sharded. ``out_shardings`` (``parallel.state_shardings``)
+    makes the step the mesh's: ``state`` is this rank's share
+    (``parallel.shard_train_state``) and ``batch`` its views
+    (``parallel.shard_batch``). A mesh whose ``data`` or ``gauss`` axis
+    exceeds 1 needs ``out_shardings``."""
+    mesh = out_shardings.mesh if out_shardings is not None else tile_mesh
+    if tile_mesh is not None and out_shardings is not None and tile_mesh is not mesh:
+        raise ValueError("tile_mesh and out_shardings name different meshes")
+    if (out_shardings is None and mesh is not None
+            and (mesh.shape["data"] > 1 or mesh.shape["gauss"] > 1)):
+        raise ValueError("a mesh with data or gauss above 1 needs out_shardings "
+                         "(parallel.state_shardings)")
+    if tile_mesh is not None and tile_mesh.shape["tile"] == 1:
+        tile_mesh = None
 
     def step(state: TrainState, batch: ViewBatch, prototypes, bg, spatial_lr_scale,
              pseudo: Optional[PseudoInputs] = None, device=None):
@@ -225,10 +286,17 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
         if with_pseudo != (pseudo is not None):
             raise ValueError("a step made with with_pseudo=True takes PseudoInputs, "
                              "and only such a step does")
+        want = None if out_shardings is None else out_shardings.slots
+        if state.slots != want:
+            raise ValueError(f"the state holds slots {state.slots}, the step's sharding "
+                             f"{want}")
         bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
         prototypes = torch.as_tensor(prototypes, dtype=torch.float32, device=dev)
         grads = loss_and_grads(state, batch, prototypes, bg, cfg, sh_degree, dev,
-                               pseudo=pseudo, mono_depth_fn=mono_depth_fn)
+                               pseudo=pseudo, mono_depth_fn=mono_depth_fn,
+                               tile_mesh=tile_mesh, data_mesh=mesh)
+        if out_shardings is not None:
+            return _mesh_update(state, batch, grads, cfg, spatial_lr_scale, mesh)
 
         with torch.no_grad():
             g = state.gaussians
@@ -255,3 +323,82 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
         return state, metrics
 
     return step
+
+
+@torch.no_grad()
+def _mesh_update(state: TrainState, batch: ViewBatch, grads: Gradients, cfg: TrainConfig,
+                 spatial_lr_scale, mesh) -> tuple:
+    """The update of a sharded step: one sum over ``data`` of the gradients,
+    the densification sums and the metrics' sums, one max over ``data`` of
+    the radii and the telemetry, Adam on this rank's slots, and the gather
+    of the parameters' rows over ``gauss``."""
+    from sdpgs_torch.parallel import comm
+
+    g = state.gaussians
+    data, n_data = mesh.group("data"), mesh.shape["data"]
+    V = len(batch.cameras) * n_data
+    H, W = batch.image.shape[-2:]
+    # the rank's loss is the mean over its V / n_data views: its offset
+    # gradients are n_data times those of the mean over all V
+    inc = densification_increments(grads.offsets / n_data,
+                                   torch.stack([o.visibility for o in grads.outs]),
+                                   torch.stack([o.radii for o in grads.outs]), W, H)
+    psnrs = torch.stack([psnr(torch.clamp(a, 0, 1), torch.clamp(b, 0, 1))
+                         for a, b in zip(grads.images, batch.image)])
+    sums = [grads.params[k].reshape(-1) for k in TRAINABLE]
+    n_grad = sum(t.numel() for t in sums)
+    flat = comm.all_sum(torch.cat(sums + [
+        inc.xyz_gradient_accum, inc.denom,
+        torch.stack([grads.loss, grads.l1.sum(), psnrs.sum()])]), data)
+    flat[:n_grad].div_(n_data)
+    telemetry = torch.stack([torch.stack([getattr(o, k) for o in grads.outs]).amax()
+                             for k in ("overflow", "clipped", "slab")])
+    maxed = comm.all_max(torch.cat([inc.max_radii2d.double(), telemetry.double()]), data)
+    P = g.capacity
+    full, o = {}, 0
+    for k in TRAINABLE:
+        p = getattr(g, k)
+        full[k] = flat[o:o + p.numel()].view_as(p)
+        o += p.numel()
+    inc = DensifyStats(xyz_gradient_accum=flat[n_grad:n_grad + P],
+                       denom=flat[n_grad + P:n_grad + 2 * P],
+                       max_radii2d=maxed[:P].float())
+    loss, l1_sum, psnr_sum = flat[n_grad + 2 * P:]
+
+    lrs = learning_rates(cfg.optim, state.step, float(spatial_lr_scale))
+    lo, hi = state.slots
+    state.opt_state = adam_update(g, full, state.opt_state, lrs, slots=(lo, hi))
+    _gather_param_rows(g, lo, hi, mesh.group("gauss"))
+    state.stats = apply_increments(state.stats, DensifyStats(
+        *(getattr(inc, f)[lo:hi] for f in ("xyz_gradient_accum", "denom", "max_radii2d"))))
+    overflow, clipped, slab = (maxed[P + i].to(torch.int32) for i in range(3))
+    metrics = StepMetrics(loss=loss / n_data, l1=l1_sum / V, psnr=psnr_sum / V,
+                          overflow=overflow, clipped=clipped,
+                          num_alive=g.alive.sum().to(torch.int32), slab=slab)
+    state.step += 1
+    state.max_overflow = torch.maximum(state.max_overflow, metrics.overflow)
+    state.max_clipped = torch.maximum(state.max_clipped, metrics.clipped)
+    state.max_slab = torch.maximum(state.max_slab, metrics.slab)
+    return state, metrics
+
+
+@torch.no_grad()
+def _gather_param_rows(g, lo: int, hi: int, group) -> None:
+    """Every rank of the ``gauss`` axis updated its rows [lo, hi) of each
+    trainable field: one gather makes the fields whole on all of them."""
+    from sdpgs_torch.parallel import comm
+
+    if group is None:
+        return
+    fields = [getattr(g, k) for k in TRAINABLE]
+    buf = torch.zeros(sum(p.numel() for p in fields), dtype=torch.float32, device=g.device)
+    o = 0
+    for p in fields:
+        w = p.numel() // p.shape[0]
+        buf[o + lo * w:o + hi * w] = p[lo:hi].reshape(-1)
+        o += p.numel()
+    comm.all_sum(buf, group)
+    o = 0
+    for p in fields:
+        p.copy_(buf[o:o + p.numel()].view_as(p))
+        o += p.numel()

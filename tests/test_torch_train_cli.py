@@ -108,16 +108,25 @@ def test_parser_has_jax_flags_and_defaults():
                                   ["--dist_coordinator", "localhost:1234"],
                                   ["--dist_num_processes", "2", "--dist_process_id", "0"]],
                          ids=["mesh_data", "mesh_gauss_tile", "coordinator", "processes"])
-def test_multi_card_flags_refused(argv):
+def test_multi_card_flags_refused(argv, tmp_path):
+    """A mesh is accepted but needs a process group of as many ranks; the
+    multi-process flags need all three (or ``auto``): without them, no run
+    falls back to one card."""
     args = tcli.build_parser().parse_args(["-s", "x"] + argv)
-    with pytest.raises(SystemExit, match="A5"):
-        tcli.config_from_args(args)
+    cfg = tcli.config_from_args(args)
+    if argv[0] == "--mesh":
+        assert cfg.mesh_data * cfg.mesh_gauss * cfg.mesh_tile > 1
+        with pytest.raises(ValueError, match="torch.distributed ranks, have 1"):
+            tcli.main(["-s", str(tmp_path)] + argv, device="cpu")
+    else:
+        with pytest.raises(SystemExit, match="must all be given"):
+            tcli.main(["-s", str(tmp_path)] + argv, device="cpu")
 
 
-def test_multi_process_environment_refused(monkeypatch):
+def test_multi_process_environment_refused(monkeypatch, tmp_path):
     monkeypatch.setenv("SDPGS_NUM_PROCESSES", "2")
-    with pytest.raises(SystemExit, match="SDPGS_NUM_PROCESSES.*A5"):
-        tcli.config_from_args(tcli.build_parser().parse_args(["-s", "x"]))
+    with pytest.raises(SystemExit, match="must all be given"):
+        tcli.main(["-s", str(tmp_path)], device="cpu")
     monkeypatch.delenv("SDPGS_NUM_PROCESSES")
     with pytest.raises(SystemExit, match="unknown axis"):
         tcli.config_from_args(tcli.build_parser().parse_args(["-s", "x", "--mesh", "rows=2"]))

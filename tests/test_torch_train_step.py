@@ -177,8 +177,25 @@ def test_loss_decreases(rng):
     assert float(state.stats.denom.max()) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(with_pseudo=True, tile_mesh=object()),
-                                dict(tile_mesh=object()), dict(out_shardings=object())])
+def _mesh(data=1, gauss=1, tile=1):
+    from sdpgs_torch.parallel.mesh import Mesh
+
+    shape = dict(data=data, gauss=gauss, tile=tile)
+    return Mesh(shape=shape, coords=dict.fromkeys(shape, 0), groups=dict.fromkeys(shape))
+
+
+def _sharding(mesh):
+    from sdpgs_torch.parallel.sharding import StateSharding
+
+    return StateSharding(mesh=mesh, capacity=64, slots=(0, 64))
+
+
+@pytest.mark.parametrize("kw", [dict(with_pseudo=True, tile_mesh=_mesh(data=2, tile=2)),
+                                dict(tile_mesh=_mesh(gauss=2)),
+                                dict(out_shardings=_sharding(_mesh()), tile_mesh=_mesh(tile=2))])
 def test_later_slices_refused(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
+    """A mesh step that could run unsharded by mistake is refused: a mesh
+    with data or gauss axes needs the state's sharding, which must name the
+    same mesh."""
+    with pytest.raises(ValueError, match="out_shardings|different meshes"):
         make_train_step(torch_cfg(), 3, **kw)

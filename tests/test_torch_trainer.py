@@ -318,7 +318,8 @@ def test_depth_net_from_cfg_weights(tmp_path):
 
 
 def test_trainer_refuses_what_later_slices_bring():
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    # a mesh needs a torch.distributed group of as many ranks
+    with pytest.raises(ValueError, match="needs 2 torch.distributed ranks, have 1"):
         tloop.Trainer(tconfig.TrainConfig(mesh_data=2), scene=object(), device="cpu")
     # without a scene the Trainer loads one from cfg.model.source_path
     with pytest.raises(ValueError, match="could not recognize scene type"):
