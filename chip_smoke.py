@@ -21,7 +21,10 @@ points, clouds, images and weights made from a seed:
 - serving: a trained-like cloud is written as a PLY and loaded back on the
   card; each kernel (K1-K3 forward, K4-K5 backward) is held against its
   plain PyTorch version on the same inputs at the main and a tight config,
-  K5 also on poisoned conics and where alpha clamps at 0.99; in each of
+  K5 also on poisoned conics and where alpha clamps at 0.99 (and K5
+  launched 5 times with and 5 without its counts on each of the main,
+  tight and clamp inputs and at a tile offset of 48, every result bit-equal
+  to the first: its sums run in a fixed order); in each of
   those K3's n_visit and last_contrib equal a plain sequential walk over
   every entry and K3's and K5's counts of contributing pairs a plain
   count, so their shared entry cull skipped nothing; K2 and K3 again at
@@ -43,7 +46,9 @@ points, clouds, images and weights made from a seed:
   bit-identical too;
   the DPT-Hybrid depth net (random weights, seed 0) on the card against
   the CPU, and in bf16 against f32; one pseudo step on the card against
-  the CPU at a reduced size; then, from iteration 4500, 30 pseudo steps
+  the CPU at a reduced size; a plain and a pseudo step each taken twice
+  from one state at iteration 4500, every tensor of the two resulting
+  states and the metrics bit-equal; then, from iteration 4500, 30 pseudo steps
   (``make_train_step(with_pseudo=True)``) with the depth net in the loss,
   whose pseudo cameras come from one K6 prefetch of 64: K1-K5 must launch
   twice per step, K6 once, and no plain version; the loss must fall below
@@ -102,23 +107,36 @@ points, clouds, images and weights made from a seed:
   pseudo step (K6 and a tiny DPT replicated) from the single-card run's
   state: metrics per step, parameters, moments and statistics at the CPU
   tests' tolerances, every rank's state identical and K1-K5 launched on
-  every rank; then ``certify_sharded_training(4)`` (every event, the
-  restore exact, the trajectory within 5e-2 of one card; K5's atomics
-  round differently run by run, so on the card the resumed run and the
-  later ladder rungs are not compared bit for bit), and the same on 4
-  gloo ranks on the machine's CPU, where the plain path is deterministic
-  and every equality of the JAX certification holds, the resumed run bit
-  for bit; NCCL with a card per rank runs the same where the machine has
-  two cards or more.
+  every rank; then ``certify_sharded_training(4)`` with JAX's checks
+  (every event, the restore exact, the resumed run bit for bit, every
+  ladder rung equal, the trajectory within 5e-2 and the alive count within
+  JAX's tolerance of the single card, every rank's single-card leg the
+  same), and the same on 4 gloo ranks on the machine's CPU; then
+  ``parallel/certify_bench_shape`` on 4 gloo ranks sharing the card at the
+  bench shape (131,072 slots, 60,000 alive, 504x378, K 1,024, two views) on
+  a (2, 2, 1) and a (1, 2, 2) mesh: 3 sharded steps against one card's
+  (loss and PSNR 1e-3, telemetry exact, the gauss split after every step)
+  and a densify event with the k-NN (the split after the surgery, alive
+  within JAX's tolerance); NCCL with a card per rank runs the first
+  part where the machine has two cards or more;
+- the protocol harnesses, after the evaluate phase: ``cli/full_eval`` on
+  the train CLI phase's tree as its one LLFF scene (30 iterations, then
+  the render and metrics CLIs); ``cli/ablation_run``'s ``full`` and
+  ``nomono`` arms at the protocol shape (504x378, capacity 131,072,
+  61,440 ground-truth points, 4,096 pseudo poses, 4 test views) to
+  iteration 2,050: bit-identical logs and evals through 2,000, the pseudo
+  branch live after it in both, no NaN, every kind of densify event;
+  ``cli/convergence_run`` (1,500 iterations of the train CLI on the
+  acceptance rig's scene) passing its three checks.
 
 It then times each kernel, its plain version, a render, a train step, a
 pseudo step (and the prefetch's K6, fusion and rest) and the Trainer's
 iterations and events, and profiles them; K1 and K4 are timed with the
 camera vector on the host.
-Every phase raises on failure, so the script exits non-zero and prints no
-``ok`` line; it refuses to run without a CUDA device. The card's name and
-power limit are printed first; the last two lines are the ``kernels`` JSON
-record and the ``ok`` JSON line.
+Each phase prints its wall time. Every phase raises on failure, so the
+script exits non-zero and prints no ``ok`` line; it refuses to run without
+a CUDA device. The card's name and power limit are printed first; the
+last two lines are the ``kernels`` JSON record and the ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -149,10 +167,11 @@ BLEND_OPS = 18                # K3 per contributing pair: T (1 - alpha), its tes
 GRAD_OPS = 61                 # K5 per contributing pair: 13 gradients (~48 flops) and
                               # their 13 adds into the entry's row
 REPS = 20
+K5_REPEATS = 5                # K5's determinism gate: launches of each instance
 SLEEP_CYCLES = 2_000_000      # ~1 ms of device time at H100 clocks
 RENDER_PASSES = 5             # render timing: median over passes x views
 K4_TOL = 1e-4                 # K4 vs autograd: |diff| <= 1e-4 x the field's max
-K5_TOL = 1e-3                 # K5 vs autograd: atomics' order and T recovered by
+K5_TOL = 1e-3                 # K5 vs autograd: the sum order and T recovered by
                               # division; no payload row beyond it
 PLAIN_TILES_PER_PASS = 16     # K5's plain version: tiles per autograd pass
 K4_BYTES_ROWS = 11 + 11 + 11  # K4 reads geometry and cotangent rows, writes d geometry
@@ -265,6 +284,12 @@ PAR_PSNR_RTOL = 1e-4          # ... PSNR relative
 PAR_PARAM_RTOL, PAR_PARAM_ATOL = 1e-4, 1e-6   # ... xyz and opacity
 PAR_FIELD_TOL = 1e-4          # ... moments and statistics, of each field's max
 PAR_GROUP_TIMEOUT = 300       # seconds a collective may wait before it raises
+BENCH_SHAPE_MESHES = ((2, 2, 1), (1, 2, 2))   # the bench-shape certification's meshes
+PROTOCOL_ARMS = ("full", "nomono")  # ablation_run's arms the protocol phase runs
+PROTOCOL_ITERATIONS = 2050    # past the pseudo window's start at 2,000
+PROTOCOL_LOG_EVERY = 50
+FULL_EVAL_ITERATIONS = 30
+BENCH_SHAPE_STEPS = 3         # its sharded steps per mesh (scripts/certify_bench_shape.py)
 
 
 def card_line() -> str:
@@ -412,18 +437,18 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
                                g.language_feature_normalized())
         k3_args = (payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
                    g.capacity)
-        k3_err, pairs = k3_versus_plain(k3_args, label)
+        k3_err, pairs = k3_versus_plain(k3_args, bins.rects, label)
         # what K3 and K5 must read: the table's entries below each tile's
         # count and the payload rows those reference
         listed = bins.tile_index[torch.arange(K, device=payload.device)[None, :]
                                  < bins.tile_counts[:, None]]
         entries, rows_read = listed.numel(), torch.unique(listed).numel()
 
-    bwd = check_backward_kernels(g, label, k1_args, k3_args)
+    bwd = check_backward_kernels(g, label, k1_args, k3_args, bins.rects)
     return dict(k1_args=k1_args, k2_args=k2_args, k3_args=k3_args, k1_err=k1_err,
                 k2_err=k2["err"], k3_err=k3_err, pairs=pairs, payload_numel=payload.numel(),
                 row_bytes=payload.shape[1] * 4, entries=entries, rows_read=rows_read,
-                n_valid=int(k2_args[2]), T=T, K=K, overflow=k2["overflow"],
+                n_valid=int(k2_args[2]), T=T, K=K, overflow=k2["overflow"], rects=bins.rects,
                 clipped=k2["clipped"], **bwd)
 
 
@@ -463,13 +488,14 @@ def k2_versus_plain(k2_args, label: str) -> dict:
                 holes=holes)
 
 
-def k3_versus_plain(k3_args, label: str) -> tuple:
-    """K3 against its plain version on the same table and payload: colour
-    and alpha within 1e-4, depth and feature within 1e-3 relative, all but
-    0.1% of pixels. Returns (max |diff| colour/alpha, pairs visited)."""
+def k3_versus_plain(k3_args, rects, label: str) -> tuple:
+    """K3 against its plain version on the same table and payload (binned
+    from ``rects``): colour and alpha within 1e-4, depth and feature within
+    1e-3 relative, all but 0.1% of pixels. Returns (max |diff|
+    colour/alpha, pairs visited)."""
     from sdpgs_torch.ops.rasterize import composite_cuda
 
-    o_k = composite_cuda.composite_gather(*k3_args)
+    o_k = composite_cuda.composite_gather(*k3_args, rects=rects)
     o_p = composite_cuda.composite_gather_plain(*k3_args)
     torch.cuda.synchronize()
     d_rgb = (o_k.values[..., :3] - o_p.values[..., :3]).abs().amax(-1)
@@ -589,7 +615,7 @@ def check_tile_sizes(main_check: dict) -> None:
                                   cfg.max_tiles_per_gaussian), label)
             k3_args = (payload, k2["table"].reshape(T, K), torch.clamp_max(k2["totals"], K),
                        tiles_x, tiles_y, cfg, payload.shape[0] - 1)
-            k3_versus_plain(k3_args, label)
+            k3_versus_plain(k3_args, binning.packed_rects(prep, WIDTH, HEIGHT, cfg)[0], label)
             out, last = composite_cuda.composite_gather_fwd(*k3_args)
             check_k3_walk(k3_args, out, last, label)
 
@@ -656,7 +682,7 @@ def field_errors(got: torch.Tensor, ref: torch.Tensor, tol: float):
     return rel, bad
 
 
-def k5_versus_plain(args, gen, label: str):
+def k5_versus_plain(args, rects, gen, label: str):
     """K3 forward, its walk against the plain walk, then K5 and its plain
     version at seeded random cotangents on the compositing inputs ``args``,
     and K5's pair counts (the instance with ``stats``), whose contributing
@@ -671,8 +697,8 @@ def k5_versus_plain(args, gen, label: str):
     k3_tested, k3_contrib = check_k3_walk(args, out, last, label)
     g_values = torch.randn(tuple(out.values.shape), generator=gen, device=dev)
     g_final_t = torch.randn(tuple(out.final_t.shape), generator=gen, device=dev)
-    k5_args = (payload, table, out.final_t, last, g_values, g_final_t, tiles_x, tiles_y,
-               cfg, P)
+    k5_args = (payload, table, rects, out.final_t, last, g_values, g_final_t, tiles_x,
+               tiles_y, cfg, P)
     d_k = composite_cuda.composite_gather_bwd(*k5_args)
     stats = torch.zeros(3, dtype=torch.int64, device=dev)
     composite_cuda.composite_gather_bwd(*k5_args, stats=stats)
@@ -695,7 +721,26 @@ def k5_errors(d_k: torch.Tensor, d_p: torch.Tensor):
     return (diff / scale).amax(dim=0), rows_bad, rows_live, float(diff.max())
 
 
-def check_poisoned_conic(k3_args, cfg) -> None:
+def k5_repeats(k5_args, label: str, t0: int = 0) -> None:
+    """K5's determinism gate: K5_REPEATS launches of each instance (with and
+    without ``stats``) on the same inputs must all give the payload
+    gradient of the first bit for bit."""
+    from sdpgs_torch.ops.rasterize import composite_cuda
+
+    dev = k5_args[0].device
+    first = composite_cuda.composite_gather_bwd(*k5_args, t0=t0)
+    same = {"without stats": 1, "with stats": 0}
+    for i in range(2 * K5_REPEATS - 1):
+        stats = torch.zeros(3, dtype=torch.int64, device=dev) if i % 2 == 0 else None
+        d = composite_cuda.composite_gather_bwd(*k5_args, stats=stats, t0=t0)
+        same["with stats" if stats is not None else "without stats"] += int(same_bits(d, first))
+    print(f"  K5 determinism [{label}]: launches bit-equal to the first {same} of "
+          f"{K5_REPEATS} each")
+    require(all(v == K5_REPEATS for v in same.values()),
+            f"[{label}] K5 is not bitwise deterministic")
+
+
+def check_poisoned_conic(k3_args, rects, cfg) -> None:
     """K5 where garbage conics put power >> 0, so exp(power) would overflow
     (tests/test_pallas_composite.py:106-122): the masked entries' zero
     gradient must not become 0 * inf = NaN."""
@@ -708,7 +753,7 @@ def check_poisoned_conic(k3_args, cfg) -> None:
     pay[hit, 4] = -500.0
     with torch.no_grad():
         d_k, d_p, _, (contrib, _, _), _ = k5_versus_plain(
-            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen, "poisoned conics")
+            (pay, table, counts, tiles_x, tiles_y, cfg, P), rects, gen, "poisoned conics")
     _, rows_bad, rows_live, err = k5_errors(d_k, d_p)
     finite = bool(torch.isfinite(d_k).all())
     hit_zero = not bool(d_k[hit].any())
@@ -720,7 +765,7 @@ def check_poisoned_conic(k3_args, cfg) -> None:
             "K5 on poisoned conics is not finite or disagrees")
 
 
-def check_clamped_alpha(k3_args, cfg) -> None:
+def check_clamped_alpha(k3_args, rects, cfg) -> None:
     """K5 where alpha reaches the alpha_max clamp: every tenth binned
     Gaussian made near-opaque (0.999) and ten times wider, so op e^power
     passes 0.99 at the pixels around its centre. JAX gives those pairs no
@@ -735,19 +780,20 @@ def check_clamped_alpha(k3_args, cfg) -> None:
     pay[hit, 2:5] *= 0.01
     pay[hit, 5] = 0.999
     with torch.no_grad():
-        d_k, d_p, _, (contrib, clamped, _), _ = k5_versus_plain(
-            (pay, table, counts, tiles_x, tiles_y, cfg, P), gen, "clamped alpha")
+        d_k, d_p, k5_args, (contrib, clamped, _), _ = k5_versus_plain(
+            (pay, table, counts, tiles_x, tiles_y, cfg, P), rects, gen, "clamped alpha")
     rel, rows_bad, rows_live, err = k5_errors(d_k, d_p)
     print(f"  K5 clamped alpha ({hit.numel()} rows at opacity 0.999): contributing pairs "
           f"{contrib}, clamped at {cfg.alpha_max:g} {clamped}; rows beyond {K5_TOL:g} x "
           f"column max {rows_bad} of {rows_live}, max |diff| / column max "
           f"{float(rel.max()):.1e}, max |diff| {err:.3e}; contributing pairs = the plain walk's")
     require(clamped > 0, "the clamp phase reached no clamped pair")
+    k5_repeats(k5_args, "clamped alpha")
     require(bool(torch.isfinite(d_k).all()) and rows_bad == 0,
             "K5 disagrees where alpha is clamped")
 
 
-def check_backward_kernels(g, label: str, k1_args, k3_args) -> dict:
+def check_backward_kernels(g, label: str, k1_args, k3_args, rects) -> dict:
     """K4 and K5 against their plain versions (autograd) on the card, on
     K1's and K3's inputs with seeded random cotangents."""
     from sdpgs_torch.ops.rasterize import preprocess_cuda
@@ -779,9 +825,9 @@ def check_backward_kernels(g, label: str, k1_args, k3_args) -> dict:
 
         # -- K5 vs plain: the payload gradient at random cotangents --------
         d_k, d_p, k5_args, (contrib, clamped, tested), k3_tested = k5_versus_plain(
-            k3_args, gen, label)
+            k3_args, rects, gen, label)
         rel5, rows_bad, rows_live, k5_err = k5_errors(d_k, d_p)
-        walked = int(k5_args[3].sum())   # up to each pixel's last contributor
+        walked = int(k5_args[4].sum())   # up to each pixel's last contributor
         print(f"  K5 composite bwd: payload rows beyond {K5_TOL:g} x column max {rows_bad} of "
               f"{rows_live} with a gradient (limit 0), max |diff| / column max "
               f"{[f'{v:.1e}' for v in rel5.tolist()]}, max |diff| {k5_err:.3e}; "
@@ -789,8 +835,9 @@ def check_backward_kernels(g, label: str, k1_args, k3_args) -> dict:
               f"{tested}, contributing {contrib} (= the plain walk's; clamped {clamped})")
         require(bool(torch.isfinite(d_k).all()) and rows_bad == 0, f"[{label}] K5 disagrees")
         require(0 < contrib <= tested <= walked, f"[{label}] K5's pair counts are inconsistent")
+        k5_repeats(k5_args, label)
     return dict(k4_args=(*k1_args[:3], ct, *k1_args[3:]), k4_err=k4_err,
-                k5_args=k5_args, k5_plain_args=(*k3_args, *k5_args[4:6]),
+                k5_args=k5_args, k5_plain_args=(*k3_args, *k5_args[5:7]),
                 k5_err=k5_err, contrib=contrib, k3_tested=k3_tested)
 
 
@@ -879,6 +926,34 @@ def check_step_card_vs_cpu(rng, dev) -> None:
     require(all(v <= STEP_GRAD_TOL for v in rel.values()), "card and CPU gradients differ")
     require(all(v <= STEP_METRIC_RTOL for v in metric_rel.values()), "card and CPU losses differ")
     require(all(a == b for a, b in exact.values()), "card and CPU telemetry differ")
+
+
+def state_bits(state) -> dict:
+    """Every tensor of a TrainState as numpy, flattened by name."""
+    out = {}
+    for part, v in state.to_numpy().items():
+        for k, a in (v.items() if isinstance(v, dict) else [("", v)]):
+            out[f"{part}.{k}" if k else part] = np.asarray(a)
+    return out
+
+
+def check_step_determinism(label: str, step, snap: dict, args: tuple, dev, **kw) -> None:
+    """Two steps from one state (``snap``, a TrainState as numpy) must give
+    bit-equal states and metrics."""
+    from sdpgs_torch.train.state import TrainState
+
+    runs = []
+    for _ in range(2):
+        s = TrainState.from_numpy(snap, device=dev)
+        s, m = step(s, *args, device=dev, **kw)
+        torch.cuda.synchronize()
+        runs.append((state_bits(s), [float(getattr(m, k)) for k in ("loss", "l1", "psnr")]))
+        del s
+    (a, ma), (b, mb) = runs
+    differ = [k for k in a if not np.array_equal(a[k], b[k], equal_nan=True)]
+    print(f"  {label} step determinism: two steps from one state, {len(a)} state tensors, "
+          f"differing {differ}; metrics {ma} and {mb}")
+    require(not differ and ma == mb, f"two {label} steps from one state differ: {differ}")
 
 
 def train_phase(rng, dev) -> dict:
@@ -1185,9 +1260,11 @@ def kernel_resources(source: str) -> dict:
             continue
         if not in_src:
             continue
-        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)E", line)
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)(?:ILb([01])EE)?E",
+                      line)
         if m:
-            name = m.group(1)
+            name = m.group(1) + ("" if m.group(2) is None
+                                 else "<stats>" if m.group(2) == "1" else "<no stats>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             found.setdefault(name, {})["spill"] = int(m.group(1)) + int(m.group(2))
@@ -1413,6 +1490,9 @@ def pseudo_train_phase(rng, dev, raw) -> dict:
     require(all(v != 0.0 and math.isfinite(v) for v in terms.values()),
             "a pseudo term is zero or not finite")
     require(update_diff > 0.0, "the pseudo step updated the parameters as a plain step does")
+    check_step_determinism("plain", plain_step, snap, (batches[0], protos, bg, 1.0), dev)
+    check_step_determinism("pseudo", step, snap, (batches[0], protos, bg, 1.0), dev,
+                           pseudo=pseudo0)
 
     # the main path: one prefetch, then the pseudo steps
     torch.cuda.synchronize()
@@ -1688,50 +1768,22 @@ def trainer_config():
 
 
 def make_timed_trainer():
-    """The Trainer, with a synchronize at each step and event so their host
-    times can be read: the time between consecutive steps is one whole
-    iteration (step, events, logging), by kind."""
+    """``cli/ablation_run.instrumented``'s Trainer (a synchronize at each
+    step and event, so the time between consecutive steps is one whole
+    iteration by kind; the densify events, resets and ladder recorded),
+    which also counts the low-opacity Gaussians each densify event removes."""
+    from sdpgs_torch.cli.ablation_run import instrumented
     from sdpgs_torch.train.loop import Trainer
 
-    class TimedTrainer(Trainer):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.iter_ms = {False: [], True: []}
-            self.events, self.ladder = [], []
-            self._last = None
-
-        def _step_fn(self, sh_degree, with_pseudo):
-            fn = super()._step_fn(sh_degree, with_pseudo)
-
-            def timed(*a, **kw):
-                torch.cuda.synchronize()
-                now = time.perf_counter()
-                if self._last is not None:
-                    self.iter_ms[self._last[1]].append((now - self._last[0]) * 1e3)
-                self._last = (now, with_pseudo)
-                return fn(*a, **kw)
-            return timed
-
+    class TimedTrainer(instrumented(Trainer)):
         def _maybe_densify(self, iteration):
             g = self.state.gaussians
             low = (g.alive > 0) & (torch.sigmoid(g.opacity[:, 0].detach())
                                    < self.cfg.optim.prune_threshold)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             info = super()._maybe_densify(iteration)
             if info is not None:
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                self.events.append(dict(
-                    iteration=iteration, ms=ms,
-                    knn=iteration < self.cfg.optim.proximity_until_iter,
-                    low_opacity_removed=int((low & (g.alive == 0)).sum()),
-                    **{k: int(v) for k, v in info._asdict().items()}))
+                self.events["densify"][-1]["low_opacity_removed"] = int((low & (g.alive == 0)).sum())
             return info
-
-        def _set_raster(self, new, msg):
-            self.ladder.append(msg)
-            super()._set_raster(new, msg)
 
     return TimedTrainer
 
@@ -1781,11 +1833,11 @@ def trainer_phase(dev, raw, work: Path) -> dict:
           f"{WIDTH}x{HEIGHT}, {TRAINER_SCENE['n_points']} ground-truth points, capacity "
           f"{TRAINER_SCENE['capacity']}, in {train_s:.1f} s; launches {launches} (K6 by path "
           f"{_kernels.WARP_PATH_LAUNCHES}); plain calls {plain}")
-    for e in trainer.events:
+    for e in trainer.events["densify"]:
         print(f"  densify at {e['iteration']}: {e['ms']:.1f} ms ({'with' if e['knn'] else 'without'}"
               f" the k-NN), spawned {e['spawned']}, dropped {e['dropped']}, pruned {e['pruned']} "
               f"(low opacity {e['low_opacity_removed']}), alive after {e['num_alive']}")
-    print(f"  ladder reactions: {trainer.ladder or 'none'}; raster K "
+    print(f"  ladder reactions: {trainer.events['ladder'] or 'none'}; raster K "
           f"{trainer.cfg.raster.max_per_tile}, D {trainer.cfg.raster.max_tiles_per_gaussian}")
     print(f"  history: {[(h['iter'], round(h['loss'], 5), round(h['psnr'], 2), h['alive']) for h in hist]}")
     require(launches["preprocess"] == launches["binning"] == launches["composite"]
@@ -1802,10 +1854,10 @@ def trainer_phase(dev, raw, work: Path) -> dict:
             "K7/K8 or a plain version ran on the Trainer path")
     events = [i for i in range(opt.densify_from_iter + 1, opt.densify_until_iter)
               if i % opt.densification_interval == 0]
-    require([e["iteration"] for e in trainer.events] == events,
+    require([e["iteration"] for e in trainer.events["densify"]] == events,
             f"the densify events are not at {events}")
-    require(any(e["spawned"] > 0 for e in trainer.events), "no densify event spawned")
-    require(any(e["low_opacity_removed"] > 0 for e in trainer.events
+    require(any(e["spawned"] > 0 for e in trainer.events["densify"]), "no densify event spawned")
+    require(any(e["low_opacity_removed"] > 0 for e in trainer.events["densify"]
                 if e["iteration"] > opt.start_sample_pseudo + 1),
             "the prune after the opacity reset removed nothing")
     # before the opacity reset (tests/test_trainer.py:99-103)
@@ -1845,11 +1897,11 @@ def trainer_phase(dev, raw, work: Path) -> dict:
         bare[kind] = statistics.median(times[TRAIN_WARMUP:])
     g = trainer.state.gaussians
     knn_ms = cuda_ms(lambda: knn(g.xyz.detach(), k=3, mask=g.alive, device=dev), reps=3)
-    ev = {k: [e["ms"] for e in trainer.events if e["knn"] == k] for k in (True, False)}
+    ev = {k: [e["ms"] for e in trainer.events["densify"] if e["knn"] == k] for k in (True, False)}
     wall = time.perf_counter() - t_phase
     print(f"  ms per iteration inside train() (median, one synchronize per iteration): plain "
-          f"{it_ms[False][0]:.3f} (of {it_ms[False][1]}), pseudo {it_ms[True][0]:.3f} (of "
-          f"{it_ms[True][1]}); the same steps called bare: plain {bare[False]:.3f}, "
+          f"{it_ms['plain'][0]:.3f} (of {it_ms['plain'][1]}), pseudo {it_ms['pseudo'][0]:.3f} (of "
+          f"{it_ms['pseudo'][1]}); the same steps called bare: plain {bare[False]:.3f}, "
           f"pseudo {bare[True]:.3f}; densify event with the k-NN {ev[True]} ms, without "
           f"{ev[False]} ms; k-NN alone at {g.capacity} slots {knn_ms:.1f} ms; peak device memory "
           f"{peak / 2**20:.1f} MiB; phase wall time {wall:.1f} s")
@@ -2100,7 +2152,7 @@ def cli_phase(dev, raw, work: Path) -> dict:
           f"{CLI_ITERATIONS} iterations ({n_plain} plain, {n_pseudo} pseudo) in {main_s:.1f} s "
           f"with the scene and depth-net loads; launches {launches} (K6 by path "
           f"{warp_paths}); plain calls {plain}")
-    for e in trainer.events:
+    for e in trainer.events["densify"]:
         print(f"  densify at {e['iteration']}: {e['ms']:.1f} ms ({'with' if e['knn'] else 'without'}"
               f" the k-NN), spawned {e['spawned']}, pruned {e['pruned']}, alive after "
               f"{e['num_alive']}")
@@ -2108,8 +2160,8 @@ def cli_phase(dev, raw, work: Path) -> dict:
           f"resume from {CLI_ITERATIONS}: {CLI_RESUME} iterations in {resume_s:.1f} s, launches "
           f"{resume_launches}; missing files {missing}")
     print(f"  ms per iteration inside train() (median, one synchronize per iteration): plain "
-          f"{it_ms[False][0]:.3f} (of {it_ms[False][1]}), pseudo {it_ms[True][0]:.3f} (of "
-          f"{it_ms[True][1]}) ({card})")
+          f"{it_ms['plain'][0]:.3f} (of {it_ms['plain'][1]}), pseudo {it_ms['pseudo'][0]:.3f} (of "
+          f"{it_ms['pseudo'][1]}) ({card})")
     print(f"  scene load {scene['load_s']:.2f} s on the card ({card}); phase wall time "
           f"{wall:.1f} s ({card}): tree and weights written in {t_written:.1f} s, the CPU "
           f"scene {scene['cpu_load_s']:.1f} s, CLI {main_s:.1f} s, resume {resume_s:.1f} s")
@@ -2125,7 +2177,7 @@ def cli_phase(dev, raw, work: Path) -> dict:
             f"CLI: K6's prefetch did not take the cluster path: {warp_paths}")
     require(launches["sort"] == launches["launch_floor"] == 0 and not any(plain.values()),
             "CLI: K7/K8 or a plain version ran")
-    require([e["knn"] for e in trainer.events] == [True, False],
+    require([e["knn"] for e in trainer.events["densify"]] == [True, False],
             "CLI: not one densify event with the k-NN and one without")
     require(sorted(l1) == [CLI_LOG_EVERY, CLI_ITERATIONS]
             and l1[CLI_ITERATIONS] < l1[CLI_LOG_EVERY],
@@ -2582,6 +2634,113 @@ def evaluate_phase(dev, tree: Path, model: Path, work: Path) -> dict:
                 wall=wall)
 
 
+def protocol_phase(dev, work: Path) -> dict:
+    """ablation_run's ``full`` and ``nomono`` arms at the protocol shape
+    (504x378, capacity 131,072, 61,440 ground-truth points, 10,000 initial,
+    4,096 pseudo poses, 4 test views) to iteration PROTOCOL_ITERATIONS: the
+    densify events to 2,000 (with the k-NN before 1,000... as the schedule
+    gives), evals at 1,000 and 2,000, and the first pseudo iterations. The
+    arms must be bit-identical through 2,000 (every logged loss, PSNR and
+    alive count, and both evals), the pseudo branch live after it in both
+    (pseudo iterations timed, K6 launched, the arms' logs apart at
+    PROTOCOL_ITERATIONS), nothing NaN, and each arm's kernels the kernels."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.cli import ablation_run
+
+    opt = ablation_run.build_cfg(ablation_run.build_raster()).optim
+    start = opt.start_sample_pseudo      # 2,000: the arms part after it
+    arms = {}
+    for arm in PROTOCOL_ARMS:
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = ablation_run.run_arm(arm, out_root=work / "protocol",
+                                   iterations=PROTOCOL_ITERATIONS,
+                                   log_every=PROTOCOL_LOG_EVERY, device=dev)
+        res["wall"] = time.perf_counter() - t0
+        res["launches"], res["plain"] = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+        tm, ev = res["timing"], res["events"]
+        print(f"protocol arm {arm}: {PROTOCOL_ITERATIONS} iterations in {res['wall_s']} s of "
+              f"training ({res['wall']:.1f} s with the scene); ms per iteration plain "
+              f"{tm['plain_iter_ms']:.3f} (of {tm['plain_iters']}), pseudo "
+              f"{tm['pseudo_iter_ms']:.3f} (of {tm['pseudo_iters']}); densify events "
+              f"{[(e['iteration'], e['knn'], e['num_alive']) for e in ev['densify']]}, the k-NN "
+              f"ones {[round(v) for v in tm['knn_event_ms']]} ms; resets {ev['reset']}; "
+              f"ladder {ev['ladder']}; evals {[(e['iteration'], e['test']['psnr']) for e in res['eval']]}"
+              f"; launches {res['launches']}")
+        require(all(math.isfinite(h["loss"]) and math.isfinite(h["psnr"])
+                    for h in res["history"]), f"protocol arm {arm}: a NaN in the log")
+        require(tm["pseudo_iters"] > 0 and res["launches"]["warp_zbuf"] >= 1,
+                f"protocol arm {arm}: the pseudo branch did not run after {start}")
+        require(all(res["launches"][k] > 0 for k in _kernels.FORWARD_KERNELS
+                    + _kernels.BACKWARD_KERNELS) and not any(res["plain"].values()),
+                f"protocol arm {arm}: a kernel did not launch or a plain version ran")
+        require(any(e["knn"] for e in ev["densify"]) and any(not e["knn"] for e in ev["densify"]),
+                f"protocol arm {arm}: not every kind of densify event fired")
+        arms[arm] = res
+    a, b = (arms[k] for k in PROTOCOL_ARMS)
+    before = lambda r: [h for h in r["history"] if h["iter"] <= start]  # noqa: E731
+    evals = lambda r: [e for e in r["eval"] if e["iteration"] <= start]  # noqa: E731
+    tests = [i for i in opt.test_iterations if i <= start]
+    require(before(a) == before(b) and len(before(a)) == start // PROTOCOL_LOG_EVERY,
+            f"protocol: the arms' logs differ through {start}")
+    require(evals(a) == evals(b) and [e["iteration"] for e in evals(a)] == tests,
+            f"protocol: the arms' evals at {tests} differ")
+    require(a["history"][-1] != b["history"][-1],
+            "protocol: the arms did not part after the pseudo window opened")
+    print(f"  protocol: {PROTOCOL_ARMS} bit-identical through {start} ({len(before(a))} log "
+          f"points, evals at {tests}), apart at {PROTOCOL_ITERATIONS}: "
+          f"{a['history'][-1]} vs {b['history'][-1]}")
+    return {k: dict(wall=v["wall"], timing=v["timing"]) for k, v in arms.items()}
+
+
+def convergence_phase(dev, work: Path) -> dict:
+    """convergence_run on the card: the acceptance rig's scene, the tiny DPT
+    (seed 3), conclude, 1,500 iterations of the train CLI; its three checks
+    (train PSNR >= 25, a test gain >= 5 dB, a gap <= 6 dB) must pass."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.cli import convergence_run
+
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = convergence_run.main(work / "convergence", device=dev)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
+    evals = json.loads((work / "convergence" / "out" / "eval_results.json").read_text())
+    print(f"convergence_run: {convergence_run.ITERATIONS} iterations, {wall:.1f} s; train/test "
+          f"PSNR {[(e['iteration'], round(e['train']['psnr'], 2), round(e['test']['psnr'], 2)) for e in evals]}"
+          f"; launches {launches}")
+    require(rc == 0, f"convergence_run failed its checks: {convergence_run.check(evals)}")
+    require(all(launches[k] > 0 for k in _kernels.FORWARD_KERNELS + _kernels.BACKWARD_KERNELS
+                + _kernels.WARP_KERNELS) and not any(plain.values()),
+            "convergence_run: a kernel did not launch or a plain version ran")
+    return dict(wall=wall, final=evals[-1])
+
+
+def full_eval_phase(dev, work: Path) -> dict:
+    """full_eval on the train CLI phase's tree as its one LLFF scene (the
+    module's LLFF list holds that scene for the call), for
+    FULL_EVAL_ITERATIONS: train_cli, render_cli --skip_train and
+    metrics_cli in turn; the test renders and the scores must be on disk."""
+    from sdpgs_torch.cli import full_eval
+
+    t0 = time.perf_counter()
+    out = work / "full_eval"
+    suite, full_eval.LLFF = full_eval.LLFF, ["llff_fern"]
+    try:
+        full_eval.main(["--llff", str(work), "-o", str(out), "--iterations",
+                        str(FULL_EVAL_ITERATIONS)], device=dev)
+    finally:
+        full_eval.LLFF = suite
+    wall = time.perf_counter() - t0
+    model = out / "llff" / "llff_fern"
+    renders = list((model / "test" / f"ours_{FULL_EVAL_ITERATIONS}" / "renders").glob("*.png"))
+    scores = json.loads((model / "results.json").read_text())[f"ours_{FULL_EVAL_ITERATIONS}"]
+    print(f"full_eval: 1 LLFF scene, {FULL_EVAL_ITERATIONS} iterations, {len(renders)} test "
+          f"renders, scores {scores}; {wall:.1f} s")
+    require(renders and math.isfinite(scores["PSNR"]), "full_eval wrote no renders or scores")
+    return dict(wall=wall, scores=scores)
+
+
 def tile_range_phase(main_check: dict) -> dict:
     """K2, K3 and K5 with a tile offset, in one process, on the main
     scene: for each shard count n, the shards of ceil(T / n) tiles from
@@ -2598,6 +2757,7 @@ def tile_range_phase(main_check: dict) -> dict:
 
     packed_s, order, n_valid, T, tiles_x, K, D = main_check["k2_args"]
     payload, _, _, _, tiles_y, cfg, P = main_check["k3_args"]
+    rects = main_check["rects"]
     dev = payload.device
     gen = torch.Generator(device=dev).manual_seed(7)
     npix = cfg.tile ** 2
@@ -2609,9 +2769,9 @@ def tile_range_phase(main_check: dict) -> dict:
                                                             tiles_y, cfg, P)
         g_values = torch.randn((T, npix, 7), generator=gen, device=dev)
         g_final_t = torch.randn((T, npix), generator=gen, device=dev)
-        d_whole = composite_cuda.composite_gather_bwd(payload, w_table, w_out.final_t, w_last,
-                                                      g_values, g_final_t, tiles_x, tiles_y,
-                                                      cfg, P)
+        d_whole = composite_cuda.composite_gather_bwd(payload, w_table, rects, w_out.final_t,
+                                                      w_last, g_values, g_final_t, tiles_x,
+                                                      tiles_y, cfg, P)
         _kernels.reset_counts()
         timed = None
         for n in SHARDS:
@@ -2648,7 +2808,8 @@ def tile_range_phase(main_check: dict) -> dict:
                 gv = torch.cat([g_values[t0:t0 + inside],
                                 torch.zeros((pad, npix, 7), device=dev)])
                 gt = torch.cat([g_final_t[t0:t0 + inside], torch.zeros((pad, npix), device=dev)])
-                k5_args = (payload, tab_k, out.final_t, last, gv, gt, tiles_x, tiles_y, cfg, P)
+                k5_args = (payload, tab_k, rects, out.final_t, last, gv, gt, tiles_x, tiles_y,
+                           cfg, P)
                 d_sum += composite_cuda.composite_gather_bwd(*k5_args, t0=t0)
                 if n == 4 and i == 1:
                     timed = (args2, t0, k3_args, k5_args)
@@ -2663,6 +2824,7 @@ def tile_range_phase(main_check: dict) -> dict:
             require(rows_bad == 0, f"{n} shards: K5's shard sum differs from the whole K5")
         launches = dict(_kernels.LAUNCHES)
         args2, t0, k3_args, k5_args = timed
+        k5_repeats(k5_args, f"t0 {t0}", t0=t0)
         k2_ms = cuda_ms(lambda: binning.build_table(*args2, t0=t0))
         k3_ms = cuda_ms(lambda: composite_cuda.composite_gather_fwd(*k3_args, t0=t0))
         k5_ms = cuda_ms(lambda: composite_cuda.composite_gather_bwd(*k5_args, t0=t0))
@@ -2796,10 +2958,12 @@ def par_reference(dev, work: Path, rng) -> dict:
 
 
 def par_rank_entry(rank: int, world: int, backend: str, work: str, device_type: str,
-                   sizes: dict, certify_only: bool) -> None:
+                   sizes: dict, task: str) -> None:
     """One rank of the sharded phase (a spawned process): takes the parent's
-    image size, joins the group, runs par_rank_work (or the certification
-    alone) and saves its results for the parent, which checks them."""
+    image size, joins the group, runs ``task`` (``work``: par_rank_work;
+    ``certify``: the certification alone; ``bench_shape``: the bench-shape
+    certification) and saves its results for the parent, which checks
+    them."""
     import datetime
     import os
 
@@ -2812,12 +2976,16 @@ def par_rank_entry(rank: int, world: int, backend: str, work: str, device_type: 
     if device_type == "cuda":
         dev = torch.device("cuda", rank if backend == "nccl" else 0)
         torch.cuda.set_device(dev)
-    tag = f"{backend}_{device_type}"
+    tag = f"{backend}_{device_type}" + ("" if task == "work" else f"_{task}")
     dist.init_process_group(backend, init_method=f"file://{Path(work) / f'{tag}.rdv'}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=PAR_GROUP_TIMEOUT))
-    res = (par_certify(world, dev, Path(work)) if certify_only
-           else par_rank_work(rank, world, dev, Path(work)))
+    if task == "bench_shape":
+        res = par_bench_shape(dev)
+    elif task == "certify":
+        res = par_certify(world, dev, Path(work))
+    else:
+        res = par_rank_work(rank, world, dev, Path(work))
     torch.save(res, Path(work) / f"{tag}_rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -2901,6 +3069,46 @@ def par_certify(world: int, dev, work: Path) -> dict:
     return dict(certify=res, certify_s=time.perf_counter() - t0)
 
 
+def par_bench_shape(dev) -> dict:
+    """certify_bench_shape on this rank at the bench shape, timed."""
+    from sdpgs_torch.parallel.certify_bench_shape import certify_bench_shape
+
+    t0 = time.perf_counter()
+    res = certify_bench_shape(meshes=BENCH_SHAPE_MESHES, steps=BENCH_SHAPE_STEPS, device=dev)
+    return dict(summary=res, seconds=time.perf_counter() - t0)
+
+
+def bench_shape_phase(dev, work: Path, world: int) -> dict:
+    """The bench-shape certification (131,072 slots, 60,000 alive, 504x378,
+    K 1,024, two views) on ``world`` gloo ranks sharing this card: each
+    rank asserts, per mesh of BENCH_SHAPE_MESHES, BENCH_SHAPE_STEPS sharded
+    steps against its own single-card steps (loss and PSNR 1e-3, telemetry
+    exact, the gauss split after every step) and one densify event with the
+    k-NN (the split after the surgery, alive within JAX's tolerance); the
+    parent checks that every rank saw the same."""
+    import torch.multiprocessing as tmp_mp
+
+    t0 = time.perf_counter()
+    tmp_mp.spawn(par_rank_entry, args=(world, "gloo", str(work), dev.type, {}, "bench_shape"),
+                 nprocs=world, join=True)
+    ranks = [torch.load(work / f"gloo_{dev.type}_bench_shape_rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    wall = time.perf_counter() - t0
+    s = ranks[0]["summary"]
+    same = lambda r: {k: v for k, v in r["summary"].items() if k != "seconds"}  # noqa: E731
+    require(all(same(r) == same(ranks[0]) for r in ranks),
+            "the ranks' bench-shape summaries differ")
+    require(set(s["meshes"]) == set(BENCH_SHAPE_MESHES), "a bench-shape mesh did not run")
+    for axes, m in s["meshes"].items():
+        print(f"  bench shape {axes}: losses {m['loss']} (single card {s['loss_single']}), "
+              f"telemetry {m['telemetry']}, alive after the densify event "
+              f"{m['alive_after_densify']} (single card {s['alive_single']}), "
+              f"{s['seconds'][axes]:.1f} s on rank 0")
+    print(f"bench-shape certification on {world} gloo ranks sharing the card: shape "
+          f"{s['shape']}, K {s['K']}, {s['steps']} steps per mesh; the ranks took {wall:.1f} s")
+    return dict(wall=wall, summary=s)
+
+
 def par_axes(world: int) -> tuple:
     return PAR_AXES if world == 4 else ((2, 1, 1), (1, 1, 2))
 
@@ -2948,7 +3156,7 @@ def sharded_phase(dev, work: Path, backend: str, world: int, ref: dict) -> dict:
 
     t0 = time.perf_counter()
     tmp_mp.spawn(par_rank_entry, args=(world, backend, str(work), dev.type,
-                                       dict(WIDTH=WIDTH, HEIGHT=HEIGHT), False),
+                                       dict(WIDTH=WIDTH, HEIGHT=HEIGHT), "work"),
                  nprocs=world, join=True)
     wall = time.perf_counter() - t0
     ranks = [torch.load(work / f"{backend}_{dev.type}_rank{r}.pt", weights_only=False)
@@ -2989,27 +3197,28 @@ def sharded_phase(dev, work: Path, backend: str, world: int, ref: dict) -> dict:
 
 
 def check_certify(ranks: list, world: int, device_type: str) -> None:
-    """The ranks' certification summaries: one sharded run, so its fields
-    agree on every rank (each rank's single-card leg is its own); the
-    restore exact, and on the CPU, where the path is deterministic, the
-    resumed run bit-exact."""
+    """The ranks' certification summaries (each rank asserted JAX's checks:
+    the resumed run bit-exact, every ladder rung, alive within JAX's
+    tolerance of its single-card leg): one sharded run, so its fields agree
+    on every rank, and the ranks' single-card legs agree with each other."""
     cert = [r["certify"] for r in ranks]
-    shared = ("mesh", "densify_iters", "reset_iters", "ladder_events", "final_loss_sharded",
-              "final_alive", "final_alive_single", "restore_exact")
+    shared = ("mesh", "densify_iters", "reset_iters", "ladder_events", "ladder_events_single",
+              "final_loss_sharded", "final_loss_single", "final_alive", "final_alive_single",
+              "restore_exact", "resume_bitexact")
     require(all(c[k] == cert[0][k] for c in cert for k in shared),
-            "the ranks' certification summaries of the sharded run differ")
+            "the ranks' certification summaries differ")
     c = cert[0]
     print(f"  certify_sharded_training({world}) on {device_type}: mesh {c['mesh']}, densify at "
           f"{c['densify_iters']}, resets at {c['reset_iters']}, ladder {c['ladder_events']} "
-          f"(the ranks' single-card legs {[x['ladder_events_single'] for x in cert]}), "
-          f"restore exact {c['restore_exact']}, resumed run bit-exact {c['resume_bitexact']} "
-          f"(largest parameter difference {c['resume_max_param_diff']:.3e}), final loss "
-          f"sharded {c['final_loss_sharded']:.5f} vs single {c['final_loss_single']:.5f}, "
-          f"alive sharded {c['final_alive']}, single-card legs (min, max over the ranks) "
+          f"(single card {c['ladder_events_single']}), restore exact {c['restore_exact']}, "
+          f"resumed run bit-exact {c['resume_bitexact']}, final loss sharded "
+          f"{c['final_loss_sharded']:.5f} vs single {c['final_loss_single']:.5f}, alive "
+          f"sharded {c['final_alive']}, single-card legs (min, max over the ranks) "
           f"{c['final_alive_single']}; {ranks[0]['certify_s']:.1f} s")
-    require(c["restore_exact"], "the certification's restore was not exact")
-    require(device_type != "cpu" or c["resume_bitexact"],
-            "the resumed run on the CPU is not bit-exact")
+    lo, hi = c["final_alive_single"]
+    require(c["restore_exact"] and c["resume_bitexact"] and lo == hi,
+            "the certification's restore or resume was not exact, or the ranks' single-card "
+            "legs differ")
 
 
 def cpu_certify_phase(work: Path, world: int) -> None:
@@ -3019,9 +3228,9 @@ def cpu_certify_phase(work: Path, world: int) -> None:
     import torch.multiprocessing as tmp_mp
 
     t0 = time.perf_counter()
-    tmp_mp.spawn(par_rank_entry, args=(world, "gloo", str(work), "cpu", {}, True),
+    tmp_mp.spawn(par_rank_entry, args=(world, "gloo", str(work), "cpu", {}, "certify"),
                  nprocs=world, join=True)
-    ranks = [torch.load(work / f"gloo_cpu_rank{r}.pt", weights_only=False)
+    ranks = [torch.load(work / f"gloo_cpu_certify_rank{r}.pt", weights_only=False)
              for r in range(world)]
     print(f"sharded training on the CPU: backend gloo, world size {world}; the ranks took "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3036,6 +3245,7 @@ def parallel_phase(dev, main_check: dict, work: Path) -> dict:
     res = dict(tile_range=tile_range_phase(main_check))
     ref = par_reference(dev, work, np.random.default_rng(11))
     res["gloo"] = sharded_phase(dev, work, "gloo", PAR_RANKS, ref)
+    res["bench_shape"] = bench_shape_phase(dev, work, PAR_RANKS)
     cpu_certify_phase(work, PAR_RANKS)
     cards = torch.cuda.device_count()
     if cards >= 2:
@@ -3043,6 +3253,70 @@ def parallel_phase(dev, main_check: dict, work: Path) -> dict:
     else:
         print(f"nccl: not run ({cards} card)")
     return res
+
+
+def k5_shape_times(g, cam) -> dict:
+    """K5 alone at the main config (K 1,024, D 8) and at the Trainer's
+    ladder (K 2,048, D 32) on the main scene (K1 -> bin_gaussians -> K3,
+    seeded cotangents): the median of REPS launches each, in ms. It needs
+    of the package only what every K5 since the first port takes, and
+    passes the rects where the launcher asks for them, so one card call
+    can time two trees' K5 (``--k5-times``)."""
+    import inspect
+
+    from sdpgs_torch.config import RasterizeConfig
+    from sdpgs_torch.ops.rasterize import binning, composite_cuda, preprocess_cuda
+    from sdpgs_torch.ops.rasterize.rasterizer import make_payload
+
+    takes_rects = "rects" in inspect.signature(composite_cuda.composite_gather_bwd).parameters
+    gen = torch.Generator(device=g.xyz.device).manual_seed(5)
+    out = {}
+    with torch.no_grad():
+        geoT, shT = preprocess_cuda.pack_rows(
+            g.xyz, g.get_scaling(), g.get_rotation(), g.get_features(), g.alive, SH_DEGREE)
+        base = RasterizeConfig()
+        rows = preprocess_cuda.preprocess_rows(geoT, shT, preprocess_cuda._cam_vec(cam),
+                                               SH_DEGREE, WIDTH, HEIGHT, base.near,
+                                               base.low_pass)
+        prep, color = preprocess_cuda.split_rows(rows)
+        payload = make_payload(prep, g.get_opacity()[:, 0], color,
+                               g.language_feature_normalized())
+        for K, D in ((1024, 8), (LADDER_K, LADDER_D)):
+            cfg = RasterizeConfig(max_per_tile=K, max_tiles_per_gaussian=D)
+            tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, cfg.tile)
+            bins = binning.bin_gaussians(prep, WIDTH, HEIGHT, cfg)
+            res, last = composite_cuda.composite_gather_fwd(
+                payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg, g.capacity)
+            g_values = torch.randn(tuple(res.values.shape), generator=gen, device=payload.device)
+            g_final_t = torch.randn(tuple(res.final_t.shape), generator=gen,
+                                    device=payload.device)
+            args = ((payload, bins.tile_index) + ((bins.rects,) if takes_rects else ())
+                    + (res.final_t, last, g_values, g_final_t, tiles_x, tiles_y, cfg,
+                       g.capacity))
+            out[f"K {K}, D {D}"] = dict(
+                ms=cuda_ms(lambda: composite_cuda.composite_gather_bwd(*args)),
+                entries=int(bins.tile_counts.sum()), clipped=int(bins.clipped))
+    return out
+
+
+def k5_times_main() -> int:
+    """``--k5-times``: build the kernels, then K5 at the main and ladder
+    shapes (k5_shape_times) on the main scene, as one JSON line."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.core.camera import Camera
+    from sdpgs_torch.core.gaussians import Gaussians
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    _kernels.build()
+    dev = torch.device("cuda")
+    g = Gaussians.from_numpy(make_cloud(np.random.default_rng(0)), device=dev)
+    cam = Camera.create(R=np.eye(3), T=np.array([-0.35, 0.0, 0.0]), fovx=0.9, fovy=0.7,
+                        width=WIDTH, height=HEIGHT, device="cpu")
+    print(json.dumps({"k5_ms": k5_shape_times(g, cam)}))
+    return 0
 
 
 def k1_k4_times(k1_args, k4_args) -> tuple:
@@ -3086,15 +3360,28 @@ def drive(dev: torch.device, work: Path) -> int:
     from sdpgs_torch.ops.sort import sort_by_key, sort_by_key_plain
     from sdpgs_torch.render import render
 
+    clock = dict(last=time.perf_counter(), start=time.perf_counter(), phases={})
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        clock["phases"][name] = round(now - clock["last"], 1)
+        clock["last"] = now
+        print(f"[phase] {name}: {clock['phases'][name]} s (smoke at {now - clock['start']:.1f} s)",
+              flush=True)
+
     # -- 1-2. card and kernel build ---------------------------------------
     secs = _kernels.build_seconds()
     print(f"build: {secs:.1f} s ({_kernels.build().name})", flush=True)
     for line in _kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "Compiling entry function" in line):
             print("  " + line.strip())
+
+    mark("build")
 
     # -- K7's own path: the stable depth sort ------------------------------
     sort = sort_phase(np.random.default_rng(4), dev)
+    mark("sort")
 
     # -- 3. the full-width scene, through a PLY ---------------------------
     cfg = RasterizeConfig()
@@ -3114,8 +3401,8 @@ def drive(dev: torch.device, work: Path) -> int:
 
     main_check = check_kernels(g, cams[0], cfg, "main config")
     probe = probe_phase(main_check)
-    check_poisoned_conic(main_check["k3_args"], cfg)
-    check_clamped_alpha(main_check["k3_args"], cfg)
+    check_poisoned_conic(main_check["k3_args"], main_check["rects"], cfg)
+    check_clamped_alpha(main_check["k3_args"], main_check["rects"], cfg)
     # capacity edges the main scene never reaches: K overflow, D clipping
     # (sentinel holes in the table) and 16-pixel tiles (256-thread blocks)
     tight = check_kernels(g, cams[0], RasterizeConfig(tile=16, max_per_tile=128,
@@ -3125,6 +3412,11 @@ def drive(dev: torch.device, work: Path) -> int:
             "the tight config did not reach the K and D caps")
     check_tile_sizes(main_check)
     check_binning_edges(dev, main_check)
+    for src, label in (("composite.cu", "K3"), ("composite_bwd.cu", "K5")):
+        for fn, res in kernel_resources(src).items():
+            print(f"  {label} {fn}: {res.get('registers')} registers, {res.get('spill')} bytes "
+                  f"spilled")
+    mark("kernel checks")
 
     # -- 7. the slice end to end: render_set over 8 views -----------------
     views = [
@@ -3187,10 +3479,12 @@ def drive(dev: torch.device, work: Path) -> int:
           f"{set_s / VIEWS * 1e3:.1f} ms per view")
     print(f"render peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     profile_calls(lambda cam: render(cam, g, cfg, bg, SH_DEGREE, device=dev), cams, "view")
+    mark("render")
 
     # -- 8. training: card vs CPU, then the full-width train steps --------
     check_step_card_vs_cpu(rng, dev)
     train_phase(rng, dev)
+    mark("train steps")
 
     # -- 9. pseudo-view training: K6, the depth net, the pseudo steps ------
     _, pdata = train_scene(rng, dev, WIDTH, HEIGHT, CAPACITY, ALIVE)
@@ -3203,24 +3497,39 @@ def drive(dev: torch.device, work: Path) -> int:
     dnet = check_depth_net(pdata, dev)
     check_pseudo_step_card_vs_cpu(rng, dev, dnet["raw"])
     pseudo = pseudo_train_phase(rng, dev, dnet["raw"])
+    mark("pseudo steps")
 
     # -- 10. the Trainer: densify on the card, the loop, the ladder ---------
     check_densify_card_vs_cpu(np.random.default_rng(5), dev)
     trainer = trainer_phase(dev, dnet["raw"], work)
     forced_ladder(dev, trainer["scene"])
+    mark("trainer")
 
     # -- 11. the train CLI on an LLFF tree from disk -------------------------
     cli = cli_phase(dev, dnet["raw"], work)
+    mark("train CLI")
 
     # -- 12. evaluate and prepare: the render and metrics CLIs on the CLI's
     # model, the depth prior and fusion on its tree, the viewer, a trace ----
     evaluation = evaluate_phase(dev, work / "llff_fern", work / "llff_fern_out", work)
+    mark("evaluate")
+    full_eval_phase(dev, work)
+    mark("full_eval")
 
-    # -- 13. multi-card training: the tile range of K2, K3 and K5, then the
-    # sharded steps, a sharded pseudo step and the certification on ranks ---
+    # -- 13. the protocol harnesses: two ablation arms through the pseudo
+    # window's start, and the convergence run ----------------------------
+    protocol_phase(dev, work)
+    mark("protocol")
+    convergence_phase(dev, work)
+    mark("convergence")
+
+    # -- 14. multi-card training: the tile range of K2, K3 and K5, then the
+    # sharded steps, a sharded pseudo step, the certification and the
+    # bench-shape certification on ranks ------------------------------------
     parallel_phase(dev, main_check, work)
+    mark("parallel")
 
-    # -- 14. kernel timings and bounds --------------------------------------
+    # -- 15. kernel timings and bounds --------------------------------------
     k1_args, k2_args, k3_args = (main_check[k] for k in ("k1_args", "k2_args", "k3_args"))
     k4_args, k5_args = main_check["k4_args"], main_check["k5_args"]
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
@@ -3229,10 +3538,12 @@ def drive(dev: torch.device, work: Path) -> int:
         k1_plain = cuda_ms(lambda: preprocess_cuda.preprocess_rows_plain(*k1_args))
         k2_ms = cuda_ms(lambda: binning.build_table(*k2_args))
         k2_plain = cuda_ms(lambda: binning.build_table_plain(*k2_args))
-        k3_ms = cuda_ms(lambda: composite_cuda.composite_gather(*k3_args))
+        k3_ms = cuda_ms(lambda: composite_cuda.composite_gather(*k3_args,
+                                                                rects=main_check["rects"]))
         k3_plain = cuda_ms(lambda: composite_cuda.composite_gather_plain(*k3_args))
         k4_plain = cuda_ms(lambda: preprocess_cuda.preprocess_vjp_plain(*k4_args))
         k5_ms = cuda_ms(lambda: composite_cuda.composite_gather_bwd(*k5_args))
+        k5_shapes = k5_shape_times(g, cams[0])
         k5_plain = cuda_ms(lambda: composite_cuda.composite_vjp_plain(
             *main_check["k5_plain_args"], tiles_per_pass=PLAIN_TILES_PER_PASS), reps=3)
         depths, pc = warp_check["depths"], warp_check["pc"]
@@ -3266,6 +3577,16 @@ def drive(dev: torch.device, work: Path) -> int:
     k3_bytes = read_bytes + (T + T * npix * (composite_cuda.NCH + 1)) * 4
     k4_bytes = (K4_BYTES_ROWS + 2 * nsh) * 4 * CAPACITY
     k5_bytes = read_bytes + payload_bytes + T * npix * (composite_cuda.NCH + 3) * 4
+    # what K5's fixed order moves beyond the function's own bytes: each
+    # block's partials below its start written and read once, the entry map
+    # cleared, its listed entries written and read, the rects read by the
+    # map and reduction launches, the table read by the map launch
+    last = k5_args[4]
+    side = composite_cuda.SQUARE if cfg.tile % composite_cuda.SQUARE == 0 else cfg.tile
+    sq = cfg.tile // side
+    tops = int(last.reshape(T, sq, side, sq, side).amax(dim=(2, 4)).sum())
+    k5_scratch = (2 * tops * composite_cuda.NPAY * 4 + CAPACITY * cfg.max_tiles_per_gaussian * 4
+                  + 2 * main_check["entries"] * 4 + 2 * CAPACITY * 4 + T * K * 4)
     k6_bytes = (pc.shape[0] + depths.shape[0]) * HEIGHT * WIDTH * 4 + pc.numel() * 4
     k7_bytes = SORT_BYTES * sort_args[0].numel()
     k8_bytes = PROBE_BYTES * probe_args[0].numel()
@@ -3323,11 +3644,18 @@ def drive(dev: torch.device, work: Path) -> int:
     print(f"  bytes counted: K2 {k2_bytes} (n_valid {main_check['n_valid']}), K3 {k3_bytes}, "
           f"K5 {k5_bytes} ({main_check['entries']} table entries listed, "
           f"{main_check['rows_read']} payload rows they reference)")
+    print(f"  composite_bwd's scratch: {k5_scratch} bytes ({tops} partial rows below the "
+          f"blocks' starts, the [{CAPACITY}, {cfg.max_tiles_per_gaussian}] entry map, the "
+          f"rects, the table); with them the bytes bound is "
+          f"{(k5_bytes + k5_scratch) / HBM_BYTES_PER_S * 1e6:.2f} us")
+    print(f"  composite_bwd at the main and the ladder shapes: {k5_shapes}")
     ev = evaluation["rendered"]
     print(f"  K1-K3 on the evaluation path (render CLI, {ev['n_views']} views): launches "
           f"{ {k: ev['launches'][k] for k in _kernels.FORWARD_KERNELS} }; the viewer launches "
           f"each once per frame ({VIEWER_FRAMES} frames, and once for its check)")
 
+    mark("kernel timings")
+    print(f"phases (s): {clock['phases']}; total {time.perf_counter() - clock['start']:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3336,4 +3664,4 @@ def drive(dev: torch.device, work: Path) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(k5_times_main() if sys.argv[1:] == ["--k5-times"] else main())

@@ -85,11 +85,11 @@ _SIGNATURES = {
     # geo, sh, ct, cam(host [39]), dgeo, dsh, masks(or null), P, deg, width,
     # height, near, low_pass, stream
     "sdpgs_preprocess_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # payload, table, final_t, last_contrib, g_values, g_final_t, d_payload,
-    # stats(or null), P, num_tiles (rows), t0, grid_tiles, tiles_x, tile, K,
-    # alpha_min, alpha_max, stream
-    "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                            _P],
+    # payload, table, rects, final_t, last_contrib, g_values, g_final_t,
+    # d_payload, stats(or null), map, partial, tops (scratch), P, num_tiles
+    # (rows), t0, grid_tiles, tiles_x, tile, K, D, alpha_min, alpha_max, stream
+    "sdpgs_composite_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _P],
     # depths, pc, out, n_pairs, V, H, W, cluster (0: the general path), rows,
     # stream
     "sdpgs_warp_zbuf": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -93,25 +93,27 @@ SDPGS_DEVICE bool entry_alpha(float mx, float my, float ca, float cb, float cc, 
 SDPGS_DEVICE void entry_grad(const EntryAlpha& ea, float ca, float cb, float cc,
                              const float* v, const float* g, float alpha_max, float& T,
                              float& S, float* grad) {
-  const float one_m = 1.0f - ea.alpha;
-  const float t_i = T / one_m;
-  const float w = ea.alpha * t_i;
+  // every rounding step is an intrinsic, so no contraction the compiler
+  // chooses for one instance of K5 (with or without stats) changes a bit
+  const float one_m = __fsub_rn(1.0f, ea.alpha);
+  const float t_i = __fdiv_rn(T, one_m);
+  const float w = __fmul_rn(ea.alpha, t_i);
   float vg = 0.0f;
   for (int ch = 0; ch < SDPGS_NCH; ++ch) {
-    vg += v[ch] * g[ch];
-    grad[6 + ch] = w * g[ch];
+    vg = __fmaf_rn(v[ch], g[ch], vg);
+    grad[6 + ch] = __fmul_rn(w, g[ch]);
   }
-  const float d_alpha = t_i * vg - S / one_m;
-  S += w * vg;
+  const float d_alpha = __fsub_rn(__fmul_rn(t_i, vg), __fdiv_rn(S, one_m));
+  S = __fmaf_rn(w, vg, S);
   T = t_i;
   if (ea.alpha_raw < alpha_max) {
-    const float d_pow = d_alpha * ea.alpha_raw;
-    grad[0] = -d_pow * (ca * ea.dx + cb * ea.dy);
-    grad[1] = -d_pow * (cc * ea.dy + cb * ea.dx);
-    grad[2] = -0.5f * d_pow * ea.dx * ea.dx;
-    grad[3] = -d_pow * ea.dx * ea.dy;
-    grad[4] = -0.5f * d_pow * ea.dy * ea.dy;
-    grad[5] = d_alpha * ea.ex;
+    const float d_pow = __fmul_rn(d_alpha, ea.alpha_raw);
+    grad[0] = -__fmul_rn(d_pow, __fmaf_rn(ca, ea.dx, __fmul_rn(cb, ea.dy)));
+    grad[1] = -__fmul_rn(d_pow, __fmaf_rn(cc, ea.dy, __fmul_rn(cb, ea.dx)));
+    grad[2] = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, d_pow), ea.dx), ea.dx);
+    grad[3] = __fmul_rn(__fmul_rn(-d_pow, ea.dx), ea.dy);
+    grad[4] = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, d_pow), ea.dy), ea.dy);
+    grad[5] = __fmul_rn(d_alpha, ea.ex);
   } else {
     for (int f = 0; f < 6; ++f) grad[f] = 0.0f;
   }

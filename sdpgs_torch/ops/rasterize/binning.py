@@ -39,6 +39,8 @@ class Binning(NamedTuple):
     overflow: torch.Tensor     # 0-d int32: entries of these tiles dropped by the K cap
     clipped: torch.Tensor      # 0-d int32: tile slots dropped by the D cap (all tiles)
     num_entries: torch.Tensor  # 0-d int32: total (tile, gaussian) pairs (all tiles)
+    rects: torch.Tensor        # [P] int32 packed tile rects by Gaussian id (empty for
+                               # the culled): K5's entry map reads them
 
 
 def tile_grid(width: int, height: int, tile: int) -> tuple[int, int]:
@@ -155,10 +157,10 @@ def build_table(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
     return table, totals
 
 
-def sort_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig):
-    """Tile rects packed into one i32 per Gaussian, depth-sorted (stable;
-    culled Gaussians last with empty rects). Returns (packed_s, order,
-    n_valid)."""
+def packed_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig):
+    """Tile rects packed into one i32 per Gaussian, by Gaussian id (empty
+    for the culled), with the depth sort's key and the count of valid
+    ones. Returns (packed, depth_key, n_valid)."""
     tiles_x, tiles_y = tile_grid(width, height, cfg.tile)
     if tiles_x >= 256 or tiles_y >= 256:
         raise ValueError("rect packing uses 8-bit tile coords (8160 px at tile=32); "
@@ -171,9 +173,19 @@ def sort_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig
     ymax0 = torch.where(valid0, ymax0, ymin0)
     packed = pack_rect(xmin0, xmax0, ymin0, ymax0)
     depth_key = torch.where(valid0, prep.depth, torch.full_like(prep.depth, float("inf")))
-    n_valid = valid0.sum(dtype=torch.int32)
+    return packed, depth_key, valid0.sum(dtype=torch.int32)
+
+
+def _sorted(packed, depth_key, n_valid):
     _, order = torch.sort(depth_key, stable=True)
     return packed[order].contiguous(), order.to(torch.int32), n_valid
+
+
+def sort_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig):
+    """Tile rects packed into one i32 per Gaussian, depth-sorted (stable;
+    culled Gaussians last with empty rects). Returns (packed_s, order,
+    n_valid)."""
+    return _sorted(*packed_rects(prep, width, height, cfg))
 
 
 def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig,
@@ -185,7 +197,8 @@ def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeCon
     t0, num_tiles = (0, tiles_x * tiles_y) if tile_range is None else tile_range
     K = cfg.max_per_tile
     D = cfg.max_tiles_per_gaussian
-    packed_s, order, n_valid = sort_rects(prep, width, height, cfg)
+    packed, depth_key, n_valid = packed_rects(prep, width, height, cfg)
+    packed_s, order, n_valid = _sorted(packed, depth_key, n_valid)
 
     xmin, xmax, ymin, ymax = unpack_rect(packed_s)
     count = (xmax - xmin) * (ymax - ymin)
@@ -199,4 +212,5 @@ def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeCon
         overflow=torch.clamp_min(totals - K, 0).sum(dtype=torch.int32),
         clipped=clipped,
         num_entries=num_entries,
+        rects=packed,
     )

@@ -31,6 +31,7 @@ from sdpgs_torch.ops.rasterize.composite import (
 
 NPAY = 13   # xy(2) conic(3) opacity*valid(1) rgb(3) depth(1) feature(3)
 NCH = 7     # composited channels: rgb, depth, feature
+SQUARE = 16  # composite_math.cuh kSquare: a block's side where it divides the tile
 
 
 def _check_payload(payload, num_gaussians: int) -> None:
@@ -136,34 +137,61 @@ def composite_gather_fwd(payload, table, counts, tiles_x: int, tiles_y: int,
     return TileOutputs(values=values, final_t=final_t, n_visit=n_visit), last
 
 
-def composite_gather_bwd(payload, table, final_t, last, g_values, g_final_t,
+def squares(tile: int) -> int:
+    """K3's and K5's blocks per tile: its SQUARE x SQUARE squares, or the
+    whole tile where SQUARE does not divide it (square_side)."""
+    side = SQUARE if tile % SQUARE == 0 else tile
+    return (tile // side) ** 2
+
+
+def composite_bwd_scratch(T: int, K: int, tile: int, num_gaussians: int, D: int, dev):
+    """K5's scratch, uninitialised, in one allocation: the entry map [P, D]
+    i32, the blocks' starts [T * squares] i32 and their partials
+    [T * squares, K, 13] f32."""
+    rows = T * squares(tile)
+    n_map = num_gaussians * D
+    buf = torch.empty((n_map + rows + rows * K * NPAY,), dtype=torch.int32, device=dev)
+    return (buf[:n_map].view(num_gaussians, D), buf[n_map + rows:].view(torch.float32)
+            .view(rows, K, NPAY), buf[n_map:n_map + rows])
+
+
+def composite_gather_bwd(payload, table, rects, final_t, last, g_values, g_final_t,
                          tiles_x: int, tiles_y: int, cfg: RasterizeConfig,
                          num_gaussians: int, stats=None, t0: int = 0) -> torch.Tensor:
     """Launch K5 on CUDA tensors autograd does not track: the payload
     gradient [P+1, 13] (row P zero) at cotangents g_values [T, tile^2, 7]
-    and g_final_t [T, tile^2], from K3's final_t and last_contrib.
-    ``stats``, a zeroed int64 [3] tensor, receives the contributing (entry,
-    pixel) pairs, those of them clamped at ``alpha_max`` and the pairs K5
-    tested, when given. The T rows are the tiles from ``t0``."""
+    and g_final_t [T, tile^2], from K3's final_t and last_contrib. ``rects``
+    [P] int32 are the packed tile rects binning listed the Gaussians by
+    (``Binning.rects``): K5 sums each Gaussian's entries in the order of
+    its rect's tiles, so the result is the same bit for bit on every
+    launch. ``stats``, a zeroed int64 [3] tensor, receives the contributing
+    (entry, pixel) pairs, those of them clamped at ``alpha_max`` and the
+    pairs K5 tested, when given. The T rows are the tiles from ``t0``."""
     _check_tiles(payload, table, None, tiles_x, tiles_y, cfg, num_gaussians, t0)
-    T = table.shape[0]
+    T, K = table.shape
+    D = cfg.max_tiles_per_gaussian
     npix = cfg.tile * cfg.tile
     if npix % 32:
         raise ValueError(f"tile {cfg.tile}: K5 needs tile^2 to be a multiple of 32")
-    for t, name, dtype, shape in ((final_t, "final_t", torch.float32, (T, npix)),
+    for t, name, dtype, shape in ((rects, "rects", torch.int32, (num_gaussians,)),
+                                  (final_t, "final_t", torch.float32, (T, npix)),
                                   (last, "last_contrib", torch.int32, (T, npix)),
                                   (g_values, "g_values", torch.float32, (T, npix, NCH)),
                                   (g_final_t, "g_final_t", torch.float32, (T, npix))):
         _kernels.check(t, name, dtype, shape)
     if stats is not None:
         _kernels.check(stats, "stats", torch.int64, (3,))
-    d_payload = torch.zeros_like(payload)
+    # the kernel writes every row, the sentinel's zeros included
+    d_payload = torch.empty_like(payload)
+    entry_map, partial, tops = composite_bwd_scratch(T, K, cfg.tile, num_gaussians, D,
+                                                     payload.device)
     _kernels.launch(
         "composite_bwd", "sdpgs_composite_bwd",
-        _kernels.ptr(payload), _kernels.ptr(table), _kernels.ptr(final_t),
+        _kernels.ptr(payload), _kernels.ptr(table), _kernels.ptr(rects), _kernels.ptr(final_t),
         _kernels.ptr(last), _kernels.ptr(g_values), _kernels.ptr(g_final_t),
-        _kernels.ptr(d_payload), _kernels.ptr(stats), num_gaussians, T, t0, tiles_x * tiles_y,
-        tiles_x, cfg.tile, table.shape[1], float(cfg.alpha_min), float(cfg.alpha_max),
+        _kernels.ptr(d_payload), _kernels.ptr(stats), _kernels.ptr(entry_map),
+        _kernels.ptr(partial), _kernels.ptr(tops), num_gaussians, T, t0, tiles_x * tiles_y,
+        tiles_x, cfg.tile, K, D, float(cfg.alpha_min), float(cfg.alpha_max),
         _kernels.stream(payload.device),
     )
     return d_payload
@@ -173,11 +201,11 @@ class _CompositeGather(torch.autograd.Function):
     """K3 forward, K5 backward; the launchers get detached tensors."""
 
     @staticmethod
-    def forward(ctx, payload, table, counts, tiles_x, tiles_y, cfg, num_gaussians, t0):
+    def forward(ctx, payload, table, counts, rects, tiles_x, tiles_y, cfg, num_gaussians, t0):
         payload = payload.detach()
         out, last = composite_gather_fwd(payload, table, counts, tiles_x, tiles_y, cfg,
                                          num_gaussians, t0=t0)
-        ctx.save_for_backward(payload, table, out.final_t, last)
+        ctx.save_for_backward(payload, table, rects, out.final_t, last)
         ctx.args = (tiles_x, tiles_y, cfg, num_gaussians)
         ctx.t0 = t0
         ctx.mark_non_differentiable(out.n_visit)
@@ -188,25 +216,29 @@ class _CompositeGather(torch.autograd.Function):
     def backward(ctx, g_values, g_final_t, _g_visit):
         # final_t was saved as an output of this Function, so it comes back
         # tracked by autograd: hand the launcher a detached view (no copy)
-        payload, table, final_t, last = (t.detach() for t in ctx.saved_tensors)
-        d_payload = composite_gather_bwd(payload, table, final_t, last,
+        payload, table, rects, final_t, last = (t.detach() for t in ctx.saved_tensors)
+        d_payload = composite_gather_bwd(payload, table, rects, final_t, last,
                                          g_values.contiguous(), g_final_t.contiguous(),
                                          *ctx.args, t0=ctx.t0)
-        return d_payload, None, None, None, None, None, None, None
+        return d_payload, None, None, None, None, None, None, None, None
 
 
 def composite_gather(payload, table, counts, tiles_x: int, tiles_y: int,
-                     cfg: RasterizeConfig, num_gaussians: int, t0: int = 0) -> TileOutputs:
+                     cfg: RasterizeConfig, num_gaussians: int, t0: int = 0, *,
+                     rects) -> TileOutputs:
     """K3 (backward K5) on CUDA tensors, the plain version on CPU tensors.
 
     payload [P+1, 13] f32 with P = ``num_gaussians`` (row P is the zero
     sentinel), table [T, K] int32 with entries in [0, P] for the T tiles
-    from flat tile ``t0``, counts [T] int32 (<= K). Returns TileOutputs with
-    values [T, tile^2, 7] and final_t [T, tile^2], differentiable with
-    respect to the payload; the kernel also fills n_visit."""
+    from flat tile ``t0``, counts [T] int32 (<= K), rects [P] int32 the
+    packed tile rects the table was binned from (``Binning.rects``: K5
+    sums each Gaussian's entries in their order).
+    Returns TileOutputs with values [T, tile^2, 7] and final_t [T, tile^2],
+    differentiable with respect to the payload; the kernel also fills
+    n_visit."""
     if not payload.is_cuda:
         return composite_gather_plain(payload, table, counts, tiles_x, tiles_y, cfg,
                                       num_gaussians, t0=t0)
-    values, final_t, n_visit = _CompositeGather.apply(payload, table, counts, tiles_x,
+    values, final_t, n_visit = _CompositeGather.apply(payload, table, counts, rects, tiles_x,
                                                       tiles_y, cfg, num_gaussians, t0)
     return TileOutputs(values=values, final_t=final_t, n_visit=n_visit)

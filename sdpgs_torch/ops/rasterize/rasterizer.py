@@ -94,7 +94,8 @@ def rasterize_tiles(
         payload = payload_grad(payload)
     tiles_x, tiles_y = binning_lib.tile_grid(cam.width, cam.height, cfg.tile)
     out = composite_gather(payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
-                           xyz.shape[0], t0=0 if tile_range is None else tile_range[0])
+                           xyz.shape[0], t0=0 if tile_range is None else tile_range[0],
+                           rects=bins.rects)
     return out, bins, prep
 
 

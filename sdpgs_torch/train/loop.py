@@ -271,11 +271,14 @@ class Trainer:
         if self.mesh is not None:
             dist.barrier()
 
-    def _maybe_reset_opacity(self, iteration: int) -> None:
+    def _maybe_reset_opacity(self, iteration: int) -> bool:
+        """Reset the opacities where the schedule says; returns whether it did."""
         opt = self.cfg.optim
-        if (iteration > opt.start_sample_pseudo
-                and (iteration - opt.start_sample_pseudo - 1) % opt.opacity_reset_interval == 0):
+        fires = (iteration > opt.start_sample_pseudo
+                 and (iteration - opt.start_sample_pseudo - 1) % opt.opacity_reset_interval == 0)
+        if fires:
             reset_opacity(self.state.gaussians, self.state.opt_state)
+        return fires
 
     def _set_raster(self, new, msg: str) -> None:
         if self.is_main:

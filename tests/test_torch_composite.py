@@ -13,6 +13,7 @@ from sdpgs_tpu.ops.rasterize import composite_xla as jcomp
 from sdpgs_tpu.ops.rasterize.composite_pallas import composite_tiles_pallas
 from sdpgs_torch import _kernels
 from sdpgs_torch.config import RasterizeConfig as TConfig
+from sdpgs_torch.ops.rasterize import binning
 from sdpgs_torch.ops.rasterize import composite as tcomp
 from sdpgs_torch.ops.rasterize import composite_cuda
 
@@ -42,6 +43,23 @@ def make_payload(rng, P=300):
         table[t, :counts[t]] = rng.choice(P, counts[t], replace=False)
     table[1, 5] = P                                   # a sentinel hole
     return pay, table, counts
+
+
+def table_rects(table, P):
+    """[P] int32 packed rects: each Gaussian's bounding rect of the tiles
+    listing it (empty where none does), as binning hands K5 its rects."""
+    t, _ = np.nonzero(table < P)
+    g = table[table < P]
+    x, y = t % TX, t // TX
+    xmin, ymin = np.full(P, TX), np.full(P, TY)
+    xmax, ymax = np.zeros(P, np.int64), np.zeros(P, np.int64)
+    np.minimum.at(xmin, g, x)
+    np.maximum.at(xmax, g, x + 1)
+    np.minimum.at(ymin, g, y)
+    np.maximum.at(ymax, g, y + 1)
+    xmax, ymax = np.maximum(xmax, xmin), np.maximum(ymax, ymin)
+    return binning.pack_rect(*(torch.from_numpy(v.astype(np.int32)) for v in
+                               (xmin, xmax, ymin, ymax)))
 
 
 def gathered(pay, table):
@@ -78,7 +96,8 @@ def test_gather_wrapper_matches_pallas_interpret(rng):
     _kernels.reset_counts()
     got = composite_cuda.composite_gather(torch.from_numpy(pay), torch.from_numpy(table),
                                           torch.from_numpy(counts), TX, TY, TConfig(**KW),
-                                          pay.shape[0] - 1)
+                                          pay.shape[0] - 1,
+                                          rects=table_rects(table, pay.shape[0] - 1))
     assert _kernels.PLAIN_CALLS["composite"] == 1 and _kernels.LAUNCHES["composite"] == 0
     assert got.values.shape == (TX * TY, TILE * TILE, 7)
     assert_close(got.values.numpy(), got.final_t.numpy(), np.asarray(ref.values),
@@ -92,7 +111,8 @@ def test_gather_rejects_payload_without_sentinel_row(rng):
     P = pay.shape[0] - 1
     args = (torch.from_numpy(table), torch.from_numpy(counts), TX, TY, TConfig(**KW), P)
     with pytest.raises(ValueError, match="sentinel"):
-        composite_cuda.composite_gather(torch.from_numpy(pay[:P]), *args)
+        composite_cuda.composite_gather(torch.from_numpy(pay[:P]), *args,
+                                        rects=table_rects(table, P))
     with pytest.raises(ValueError, match="sentinel"):
         composite_cuda.composite_gather_plain(torch.from_numpy(pay[:P]), *args)
 

@@ -20,7 +20,8 @@ from sdpgs_tpu.ops.rasterize.composite_pallas import composite_tiles_pallas
 from sdpgs_torch import _kernels
 from sdpgs_torch.config import RasterizeConfig as TConfig
 from sdpgs_torch.ops.rasterize import composite_cuda
-from test_torch_composite import KW, TILE, TX, TY, gathered, make_payload
+from test_torch_composite import KW, TILE, TX, TY, gathered, make_payload, table_rects
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-4
 T, NPIX = TX * TY, TILE * TILE
@@ -53,7 +54,8 @@ def jax_payload_grad(fn, cfg, pay, table, counts, gv, gT):
 def port_payload_grad(pay, table, counts, gv, gT):
     p = torch.from_numpy(pay).requires_grad_()
     out = composite_cuda.composite_gather(p, torch.from_numpy(table), torch.from_numpy(counts),
-                                          TX, TY, TConfig(**KW), pay.shape[0] - 1)
+                                          TX, TY, TConfig(**KW), pay.shape[0] - 1,
+                                          rects=table_rects(table, pay.shape[0] - 1))
     ((out.values * torch.from_numpy(gv)).sum()
      + (out.final_t * torch.from_numpy(gT)).sum()).backward()
     return p.grad.numpy()

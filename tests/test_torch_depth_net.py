@@ -28,6 +28,7 @@ from sdpgs_torch.models import bit as tbit
 from sdpgs_torch.models import depth_estimator as tde
 from sdpgs_torch.models import dpt as tdpt
 from sdpgs_torch.ops import resize as tresize
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-4
 GRAD_TOL = 1e-3

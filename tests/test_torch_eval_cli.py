@@ -34,6 +34,7 @@ from sdpgs_tpu.cli import render_cli as jrender_cli
 from test_lpips import random_lpips_params
 from test_scene import make_colmap_scene
 from test_torch_core import random_arrays
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 ITERATION = 7
 LSB_SHARE = 1e-3      # PNG values more than 0 LSB apart: at most this share

@@ -19,6 +19,7 @@ from sdpgs_torch.eval import metrics as tmetrics
 from sdpgs_torch.models.lpips import VGG16_STAGES, LPIPS
 from sdpgs_tpu.eval import metrics as jmetrics
 from test_lpips import random_lpips_params
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 TINY = [(8, 2), (16, 2), (16, 3)]
 LPIPS_RTOL = 1e-4

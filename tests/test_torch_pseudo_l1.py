@@ -40,6 +40,7 @@ from sdpgs_torch.render import render
 from sdpgs_torch.train.state import TrainState
 from sdpgs_torch.train.step import PseudoInputs, ViewBatch, make_train_step
 from test_torch_core import jax_gaussians
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 W, H, S = 126, 94, 16
 P, N_ALIVE = 1 << 13, 4000

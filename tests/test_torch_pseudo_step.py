@@ -50,6 +50,7 @@ from sdpgs_torch.train.state import STAT_FIELDS, TrainState
 from sdpgs_torch.train.step import PseudoInputs, ViewBatch, loss_and_grads, make_train_step
 from test_torch_adam import jax_state_arrays
 from test_torch_core import jax_gaussians, random_arrays
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 RASTER = dict(tile=16, max_per_tile=128, max_tiles_per_gaussian=8, chunk=32)
 W, H, S = 72, 56, 4

@@ -34,6 +34,7 @@ from sdpgs_torch.data.ply import read_ply
 from sdpgs_tpu import config as jconfig
 from sdpgs_tpu.cli import train_cli as jcli
 from test_scene import make_colmap_scene
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 # 64x48 at tile 16 is 12 tiles: K and D that no cloud here outgrows, so the
 # capacity ladder never asks JAX for a second compile

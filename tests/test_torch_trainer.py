@@ -34,6 +34,7 @@ from sdpgs_torch.data.camera_utils import LoadedCamera
 from sdpgs_torch.train import loop as tloop
 from test_torch_adam import _assert_same_arrays
 from test_torch_pseudo_step import smooth_mono
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 RASTER = dict(tile=16, max_per_tile=128, max_tiles_per_gaussian=8, chunk=32)
 ITERATIONS, LOG_EVERY = 30, 5

@@ -304,3 +304,9 @@ def certify(n, workdir):
     from sdpgs_torch.parallel.certify import certify_sharded_training
 
     return certify_sharded_training(n, workdir=workdir, device="cpu")
+
+
+def certify_bench_shape(meshes, shape, steps):
+    from sdpgs_torch.parallel.certify_bench_shape import certify_bench_shape as run
+
+    return run(meshes=meshes, steps=steps, shape=shape, device="cpu")
