@@ -141,6 +141,7 @@ last two lines are the ``kernels`` JSON record and the ``ok`` JSON line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -2605,13 +2606,31 @@ def profiling_check(dev, scene, bg, work: Path) -> None:
             f"profiling: the trace lacks a kernel: {events}")
 
 
+class Sections:
+    """Wall milliseconds of each check of the evaluate phase, waiting for
+    the card where the section is handed a tensor on it."""
+
+    def __init__(self):
+        self.ms: dict = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str, on=None):
+        t0 = time.perf_counter()
+        yield
+        if on is not None and on.is_cuda:
+            torch.cuda.synchronize(on.device)
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+
+    def report(self) -> str:
+        return " | ".join(f"{k}: {v:.1f}ms" for k, v in sorted(self.ms.items()))
+
+
 def evaluate_phase(dev, tree: Path, model: Path, work: Path) -> dict:
     """Evaluate and prepare, on the train CLI's tree and model directory:
     the render CLI, the metrics CLI (LPIPS-VGG16), the depth prior's
     conclude, fusion, the viewer and a profiler trace."""
     from sdpgs_torch.config import load_config
     from sdpgs_torch.data.scene import RenderScene, Scene
-    from sdpgs_torch.utils.profiling import StepTimer
 
     t_phase = time.perf_counter()
     cfg = load_config(model / "cfg.json")
@@ -2621,7 +2640,7 @@ def evaluate_phase(dev, tree: Path, model: Path, work: Path) -> dict:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, device=dev)
-    timer = StepTimer()
+    timer = Sections()
     rendered = render_cli_check(dev, model, scene, rscene, bg, load_s, timer)
     metrics = metrics_cli_check(dev, model, work, rscene.loaded_iter, timer)
     prior = depth_prior_check(tree, scene, timer)
@@ -2629,7 +2648,7 @@ def evaluate_phase(dev, tree: Path, model: Path, work: Path) -> dict:
     viewer = viewer_check(dev, scene, bg, timer)
     profiling_check(dev, scene, bg, work)
     wall = time.perf_counter() - t_phase
-    print(f"evaluate and prepare: {wall:.1f} s ({card_line()}); StepTimer: {timer.report()}")
+    print(f"evaluate and prepare: {wall:.1f} s ({card_line()}); sections: {timer.report()}")
     return dict(rendered=rendered, metrics=metrics, prior=prior, fused=fused, viewer=viewer,
                 wall=wall)
 

@@ -24,7 +24,7 @@ Blender and mip-NeRF-360 trees) or an in-memory
 ``models/lpips.py``). The depth prior: ``pipelines/`` (segment-wise depth
 alignment, multi-view fusion, the MVS and COLMAP helpers) over the
 ``native/`` I/O library; ``viewer/`` serves SIBR's remote viewer and
-``utils/profiling`` traces. Multi-card training: ``parallel/`` puts the
+``utils/profiling`` traces and spans the port's phases. Multi-card training: ``parallel/`` puts the
 train step and the ``Trainer`` on a (data, gauss, tile) mesh of
 ``torch.distributed`` ranks. Eight
 kernels in ``csrc/`` carry them on the card: three forward (preprocess,

@@ -21,6 +21,7 @@ from torch import nn
 
 from sdpgs_torch.models.dpt import DPT, DPTArch, _image_size, _resize_bilinear, arch_from_json_bytes
 from sdpgs_torch.ops.resize import resize2d
+from sdpgs_torch.utils.profiling import is_recording, span
 
 MATMUL_PRECISIONS = ("default", "highest")
 
@@ -50,22 +51,42 @@ class MonoDepth(nn.Module):
         return self.net.arch
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        H, W = image.shape[1:]
-        img = image[None] if self.dtype is None else image[None].to(self.dtype)
-        if self.resize_method == "bilinear":
-            x = (_resize_bilinear(img, 384, 512, align_corners=False) - 0.5) / 0.5
-        elif self.arch.is_hybrid:
-            # JAX's default hybrid path normalises before the resize (the
-            # two commute: interpolation rows sum to 1); keep its order
-            x = resize2d((img - 0.5) / 0.5, 384, 512, "bicubic", align_corners=False)
-        else:
-            x = (resize2d(img, 384, 512, "bicubic", align_corners=False) - 0.5) / 0.5
-        depth = self.net(x).to(torch.float32)
-        if self.resize_method == "bilinear":
-            out = _resize_bilinear(depth[:, None], H, W, align_corners=False)
-        else:
-            out = resize2d(depth[:, None], H, W, "bicubic", align_corners=False)
-        return out[0, 0]
+        with span("depth_net.forward"):
+            H, W = image.shape[1:]
+            img = image[None] if self.dtype is None else image[None].to(self.dtype)
+            if self.resize_method == "bilinear":
+                x = (_resize_bilinear(img, 384, 512, align_corners=False) - 0.5) / 0.5
+            elif self.arch.is_hybrid:
+                # JAX's default hybrid path normalises before the resize (the
+                # two commute: interpolation rows sum to 1); keep its order
+                x = resize2d((img - 0.5) / 0.5, 384, 512, "bicubic", align_corners=False)
+            else:
+                x = (resize2d(img, 384, 512, "bicubic", align_corners=False) - 0.5) / 0.5
+            depth = self.net(x).to(torch.float32)
+            if self.resize_method == "bilinear":
+                out = _resize_bilinear(depth[:, None], H, W, align_corners=False)
+            else:
+                out = resize2d(depth[:, None], H, W, "bicubic", align_corners=False)
+            out = out[0, 0]
+        if is_recording() and img.requires_grad and out.requires_grad:
+            _span_backward(img, out)
+        return out
+
+
+def _span_backward(img: torch.Tensor, out: torch.Tensor) -> None:
+    """The ``depth_net.backward`` span, opened when the gradient reaches
+    the net's output and closed when it has passed back to its input, on
+    the thread that runs autograd's backward (a device thread on CUDA)."""
+    s = span("depth_net.backward")
+
+    def opened(grad):
+        s.__enter__()
+
+    def closed(grad):
+        s.__exit__(None, None, None)
+
+    out.register_hook(opened)
+    img.register_hook(closed)
 
 
 def mono_depth_from_params(raw: dict, arch: Optional[DPTArch] = None,

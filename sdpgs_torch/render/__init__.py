@@ -21,6 +21,7 @@ from sdpgs_torch.core.camera import Camera
 from sdpgs_torch.core.gaussians import Gaussians
 from sdpgs_torch.ops.rasterize.preprocess_cuda import preprocess_color
 from sdpgs_torch.ops.rasterize.rasterizer import RenderOutput, rasterize
+from sdpgs_torch.utils.profiling import span
 
 
 def _prep_color(cam, g: Gaussians, cfg, sh_degree, scaling_modifier=1.0,
@@ -58,18 +59,19 @@ def render(
     normalized language feature, the extended rasterize. Runs on ``device``
     (``cuda`` unless the caller asks for another), where ``g`` must live;
     ``cam`` may live on the host."""
-    dev = _resolve(device, g)
-    prep, color = _prep_color(cam, g, cfg, active_sh_degree, scaling_modifier)
-    if override_color is not None:
-        color = override_color
-    feature = (override_language if override_language is not None
-               else g.language_feature_normalized())
-    return rasterize(
-        g.xyz, None, g.get_opacity()[:, 0], color, feature, g.alive, cam, bg, cfg,
-        means2d_offset=means2d_offset,
-        feature_weight=confidence[:, 0] if confidence is not None else None,
-        prep=prep, device=dev,
-    )
+    with span("render", unit="view"):
+        dev = _resolve(device, g)
+        prep, color = _prep_color(cam, g, cfg, active_sh_degree, scaling_modifier)
+        if override_color is not None:
+            color = override_color
+        feature = (override_language if override_language is not None
+                   else g.language_feature_normalized())
+        return rasterize(
+            g.xyz, None, g.get_opacity()[:, 0], color, feature, g.alive, cam, bg, cfg,
+            means2d_offset=means2d_offset,
+            feature_weight=confidence[:, 0] if confidence is not None else None,
+            prep=prep, device=dev,
+        )
 
 
 def render_for_depth(cam: Camera, g: Gaussians, cfg: RasterizeConfig, bg,

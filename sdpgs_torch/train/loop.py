@@ -45,6 +45,7 @@ from sdpgs_torch.ops.knn import knn
 from sdpgs_torch.render import render
 from sdpgs_torch.train.state import TrainState, save_checkpoint
 from sdpgs_torch.train.step import PseudoInputs, ViewBatch, make_train_step
+from sdpgs_torch.utils.profiling import span
 
 # Pseudo cameras are drawn without replacement from ~10k poses, so no
 # z-buffer is ever reused: the next REPROJ_PREFETCH cameras' z-buffers are
@@ -213,13 +214,14 @@ class Trainer:
         device together when the queue runs dry (a copy from the host waits
         for the device, so not one per iteration)."""
         if not self._reproj_queue:
-            idxs = [self._next_pseudo() for _ in range(REPROJ_PREFETCH)]
-            cams = [self.scene.pseudo_camera(i)[0] for i in idxs]
-            views = torch.stack([c.view for c in cams]).to(self.device)
-            self._reproj_queue = [
-                (cam, fused, weight, views[j, :3, :3], views[j, :3, 3])
-                for j, (cam, fused, weight) in enumerate(prefetch_pseudo_reproj(
-                    self._train_depths, self._K, self._R_train, self._t_train, cams))]
+            with span("train.prefetch", n=REPROJ_PREFETCH):
+                idxs = [self._next_pseudo() for _ in range(REPROJ_PREFETCH)]
+                cams = [self.scene.pseudo_camera(i)[0] for i in idxs]
+                views = torch.stack([c.view for c in cams]).to(self.device)
+                self._reproj_queue = [
+                    (cam, fused, weight, views[j, :3, :3], views[j, :3, 3])
+                    for j, (cam, fused, weight) in enumerate(prefetch_pseudo_reproj(
+                        self._train_depths, self._K, self._R_train, self._t_train, cams))]
         return self._reproj_queue.pop(0)
 
     # ---- events ----------------------------------------------------------
@@ -231,27 +233,28 @@ class Trainer:
             return None
         if iteration <= opt.densify_from_iter or iteration % opt.densification_interval != 0:
             return None
-        state = self._whole_state()
-        g = state.gaussians
-        run_prox = iteration < opt.proximity_until_iter
-        knn_dist = knn_idx = None
-        if run_prox:
-            d2, knn_idx = knn(g.xyz.detach(), k=3, mask=g.alive, device=self.device)
-            finite = torch.isfinite(d2)
-            knn_dist = (torch.where(finite, d2, 0.0).sum(-1)
-                        / torch.clamp_min(finite.sum(-1), 1))
-        # the split children's offsets: the event's one random draw
-        noise = torch.randn((g.capacity, 3), generator=state.generator, device=self.device)
-        _, _, state.stats, info = densify_and_prune(
-            g, state.opt_state, state.stats, noise,
-            grad_threshold=opt.densify_grad_threshold, min_opacity=opt.prune_threshold,
-            extent=float(self.scene.cameras_extent), percent_dense=opt.percent_dense,
-            run_proximity=run_prox, knn_dist=knn_dist, knn_idx=knn_idx)
-        if self.mesh is not None:
-            from sdpgs_torch.parallel import shard_train_state
+        with span("train.densify"):
+            state = self._whole_state()
+            g = state.gaussians
+            run_prox = iteration < opt.proximity_until_iter
+            knn_dist = knn_idx = None
+            if run_prox:
+                d2, knn_idx = knn(g.xyz.detach(), k=3, mask=g.alive, device=self.device)
+                finite = torch.isfinite(d2)
+                knn_dist = (torch.where(finite, d2, 0.0).sum(-1)
+                            / torch.clamp_min(finite.sum(-1), 1))
+            # the split children's offsets: the event's one random draw
+            noise = torch.randn((g.capacity, 3), generator=state.generator, device=self.device)
+            _, _, state.stats, info = densify_and_prune(
+                g, state.opt_state, state.stats, noise,
+                grad_threshold=opt.densify_grad_threshold, min_opacity=opt.prune_threshold,
+                extent=float(self.scene.cameras_extent), percent_dense=opt.percent_dense,
+                run_proximity=run_prox, knn_dist=knn_dist, knn_idx=knn_idx)
+            if self.mesh is not None:
+                from sdpgs_torch.parallel import shard_train_state
 
-            self.state = shard_train_state(state, self.mesh)
-        return info
+                self.state = shard_train_state(state, self.mesh)
+            return info
 
     def _whole_state(self) -> TrainState:
         """The state with its moments and statistics whole (gathered over the
@@ -374,51 +377,54 @@ class Trainer:
         sh_degree = min((first_iter - 1) // 500, self.cfg.model.sh_degree)
         dev = self.device
         for iteration in range(first_iter, iterations + 1):
-            if iteration % 500 == 0:
-                sh_degree = min(sh_degree + 1, self.cfg.model.sh_degree)
-            in_pseudo = (opt.start_sample_pseudo < iteration < opt.end_sample_pseudo
-                         and iteration % opt.sample_pseudo_interval == 0)
-            batch = self._next_batch()
-            step = self._step_fn(sh_degree, in_pseudo)
-            pseudo = None
-            if in_pseudo:
-                cam, fused, weight, R, t = self._next_pseudo_reproj()
-                V = len(batch.cameras)
-                pseudo = PseudoInputs(
-                    camera=cam, train_depths=self._train_depths, K=self._K,
-                    R_train=self._R_train, t_train=self._t_train, R_pseudo=R, t_pseudo=t,
-                    reproj_fused=fused, reproj_weight=weight,
-                    # the reference's sampled train view (train.py:156)
-                    train_view_idx=0 if V == 1 else int(self._rng.integers(0, V)))
-            self.state, metrics = step(self.state, batch, self.prototypes, self.bg,
-                                       self.spatial_lr_scale, pseudo, device=dev)
+            with span("train.iteration", unit="iteration", request=iteration):
+                if iteration % 500 == 0:
+                    sh_degree = min(sh_degree + 1, self.cfg.model.sh_degree)
+                in_pseudo = (opt.start_sample_pseudo < iteration < opt.end_sample_pseudo
+                             and iteration % opt.sample_pseudo_interval == 0)
+                batch = self._next_batch()
+                step = self._step_fn(sh_degree, in_pseudo)
+                pseudo = None
+                if in_pseudo:
+                    cam, fused, weight, R, t = self._next_pseudo_reproj()
+                    V = len(batch.cameras)
+                    pseudo = PseudoInputs(
+                        camera=cam, train_depths=self._train_depths, K=self._K,
+                        R_train=self._R_train, t_train=self._t_train, R_pseudo=R, t_pseudo=t,
+                        reproj_fused=fused, reproj_weight=weight,
+                        # the reference's sampled train view (train.py:156)
+                        train_view_idx=0 if V == 1 else int(self._rng.integers(0, V)))
+                with span("train.step"):
+                    self.state, metrics = step(self.state, batch, self.prototypes, self.bg,
+                                               self.spatial_lr_scale, pseudo, device=dev)
 
-            self._maybe_densify(iteration)
-            self._maybe_reset_opacity(iteration)
+                self._maybe_densify(iteration)
+                self._maybe_reset_opacity(iteration)
 
-            if iteration % log_every == 0 or iteration == iterations:
-                # the running maxima folded every step's drops since the
-                # last look, so none slips between log points
-                mo, mc = self._react_to_telemetry()
-                m = {k: float(getattr(metrics, k)) for k in ("loss", "l1", "psnr")}
-                alive = int(metrics.num_alive)
-                rate = (iteration - first_iter + 1) / (time.time() - t_start)
-                if self.is_main:
-                    print(f"[{iteration}/{iterations}] loss={m['loss']:.5f} l1={m['l1']:.5f} "
-                          f"psnr={m['psnr']:.2f} alive={alive} overflow={mo} clipped={mc} "
-                          f"({rate:.2f} it/s)", flush=True)
-                history.append({"iter": iteration, "loss": m["loss"], "psnr": m["psnr"],
-                                "alive": alive})
+                if iteration % log_every == 0 or iteration == iterations:
+                    with span("train.log"):
+                        # the running maxima folded every step's drops since
+                        # the last look, so none slips between log points
+                        mo, mc = self._react_to_telemetry()
+                        m = {k: float(getattr(metrics, k)) for k in ("loss", "l1", "psnr")}
+                        alive = int(metrics.num_alive)
+                        rate = (iteration - first_iter + 1) / (time.time() - t_start)
+                        if self.is_main:
+                            print(f"[{iteration}/{iterations}] loss={m['loss']:.5f} "
+                                  f"l1={m['l1']:.5f} psnr={m['psnr']:.2f} alive={alive} "
+                                  f"overflow={mo} clipped={mc} ({rate:.2f} it/s)", flush=True)
+                        history.append({"iter": iteration, "loss": m["loss"],
+                                        "psnr": m["psnr"], "alive": alive})
 
-            if iteration in opt.test_iterations:
-                if on_eval is not None:
-                    on_eval(self, iteration)
-                else:
-                    self._training_report(iteration, sh_degree)
-            if self.scene.model_path and iteration in opt.save_iterations and self.is_main:
-                self.scene.save(iteration, self.state.gaussians)
-            if self.scene.model_path and iteration in opt.checkpoint_iterations:
-                self.save_checkpoint(Path(self.scene.model_path) / "checkpoints", iteration)
+                if iteration in opt.test_iterations:
+                    if on_eval is not None:
+                        on_eval(self, iteration)
+                    else:
+                        self._training_report(iteration, sh_degree)
+                if self.scene.model_path and iteration in opt.save_iterations and self.is_main:
+                    self.scene.save(iteration, self.state.gaussians)
+                if self.scene.model_path and iteration in opt.checkpoint_iterations:
+                    self.save_checkpoint(Path(self.scene.model_path) / "checkpoints", iteration)
         if self.scene.model_path and self.is_main:
             mp = Path(self.scene.model_path)
             mp.mkdir(parents=True, exist_ok=True)

@@ -60,6 +60,7 @@ from sdpgs_torch.opt.densify import (
 )
 from sdpgs_torch.render import render
 from sdpgs_torch.train.state import TrainState
+from sdpgs_torch.utils.profiling import span
 
 
 class StepMetrics(NamedTuple):
@@ -197,30 +198,32 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
     shards each render's tiles; ``data_mesh``, a mesh whose ``data`` axis
     split the batch, gives the pseudo branch its train view from the rank
     that holds it."""
-    g = state.gaussians
-    params = [getattr(g, k) for k in TRAINABLE]
-    offsets = [torch.zeros((g.capacity, 2), dtype=torch.float32, device=device,
-                           requires_grad=True) for _ in batch.cameras]
-    losses, l1s, images, outs = [], [], [], []
-    for v, cam in enumerate(batch.cameras):
-        out = _render(cam, g, cfg, bg, sh_degree, device, offset=offsets[v],
-                      tile_mesh=tile_mesh)
-        loss_v, (ll1, image) = _view_losses_from_out(
-            out, batch.image[v], batch.depth_mono[v], batch.feature[v], batch.seg_map[v],
-            prototypes, cfg, state.step)
-        losses.append(loss_v)
-        l1s.append(ll1.detach())
-        images.append(image.detach())
-        outs.append(out)
-    loss = torch.stack(losses).mean()
-    if pseudo is not None:
-        # no offset: the densification statistics come from the train
-        # views only (train.py:218-221)
-        out_ps = _render(pseudo.camera, g, cfg, bg, sh_degree, device, tile_mesh=tile_mesh)
-        train_feat = _train_feature(outs, pseudo.train_view_idx, cfg, data_mesh)
-        loss = loss + _pseudo_losses(out_ps, pseudo, prototypes, cfg, state.step,
-                                     mono_depth_fn, train_feature=train_feat)
-    grads = torch.autograd.grad(loss, params + offsets, allow_unused=True)
+    with span("step.forward"):
+        g = state.gaussians
+        params = [getattr(g, k) for k in TRAINABLE]
+        offsets = [torch.zeros((g.capacity, 2), dtype=torch.float32, device=device,
+                               requires_grad=True) for _ in batch.cameras]
+        losses, l1s, images, outs = [], [], [], []
+        for v, cam in enumerate(batch.cameras):
+            out = _render(cam, g, cfg, bg, sh_degree, device, offset=offsets[v],
+                          tile_mesh=tile_mesh)
+            loss_v, (ll1, image) = _view_losses_from_out(
+                out, batch.image[v], batch.depth_mono[v], batch.feature[v], batch.seg_map[v],
+                prototypes, cfg, state.step)
+            losses.append(loss_v)
+            l1s.append(ll1.detach())
+            images.append(image.detach())
+            outs.append(out)
+        loss = torch.stack(losses).mean()
+        if pseudo is not None:
+            # no offset: the densification statistics come from the train
+            # views only (train.py:218-221)
+            out_ps = _render(pseudo.camera, g, cfg, bg, sh_degree, device, tile_mesh=tile_mesh)
+            train_feat = _train_feature(outs, pseudo.train_view_idx, cfg, data_mesh)
+            loss = loss + _pseudo_losses(out_ps, pseudo, prototypes, cfg, state.step,
+                                         mono_depth_fn, train_feature=train_feat)
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, params + offsets, allow_unused=True)
     param_grads = {k: torch.zeros_like(p) if d is None else d
                    for k, p, d in zip(TRAINABLE, params, grads[:len(params)])}
     return Gradients(loss=loss.detach(), params=param_grads,
@@ -296,9 +299,10 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
                                pseudo=pseudo, mono_depth_fn=mono_depth_fn,
                                tile_mesh=tile_mesh, data_mesh=mesh)
         if out_shardings is not None:
-            return _mesh_update(state, batch, grads, cfg, spatial_lr_scale, mesh)
+            with span("step.update"):
+                return _mesh_update(state, batch, grads, cfg, spatial_lr_scale, mesh)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("step.update"):
             g = state.gaussians
             lrs = learning_rates(cfg.optim, state.step, float(spatial_lr_scale))
             state.opt_state = adam_update(g, grads.params, state.opt_state, lrs)

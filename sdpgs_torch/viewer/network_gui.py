@@ -22,6 +22,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from sdpgs_torch.utils.profiling import span
+
 
 class GuiServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 6009):
@@ -97,11 +99,12 @@ class GuiServer:
 
     def send(self, image: Optional[np.ndarray], verify: str) -> None:
         """image: [H, W, 3] float in [0,1] or None."""
-        if image is not None:
-            data = (np.clip(image, 0, 1) * 255).astype(np.uint8).tobytes()
-            self.conn.sendall(data)
-        self.conn.sendall(len(verify).to_bytes(4, "little"))
-        self.conn.sendall(verify.encode("ascii"))
+        with span("viewer.send", unit="view"):
+            if image is not None:
+                data = (np.clip(image, 0, 1) * 255).astype(np.uint8).tobytes()
+                self.conn.sendall(data)
+            self.conn.sendall(len(verify).to_bytes(4, "little"))
+            self.conn.sendall(verify.encode("ascii"))
 
     def drop(self) -> None:
         if self.conn is not None:

@@ -2,7 +2,7 @@
 against sdpgs_tpu's: the SIBR loopback round trip of test_viewer.py (the
 received camera equal to JAX's to 1e-6, on the host; the reply bytes), a
 poll that drops the connection on a failing render, vis, safe_state,
-StepTimer and trace, and symm6_to_covariance."""
+trace, and symm6_to_covariance."""
 
 import io
 import json
@@ -173,20 +173,6 @@ def test_safe_state_matches_jax(monkeypatch, quiet):
         text = out.getvalue()
         assert text.startswith("one line") and (text == "one line\n") == quiet, text
     assert draws["t"] == draws["j"]
-
-
-def test_step_timer_sections():
-    timer = tprofiling.StepTimer(ema=0.5)
-    x = torch.ones(8)
-    for _ in range(3):
-        with timer.section("a", sync_result={"out": [x, (x * 2,)]}):
-            time.sleep(0.002)
-    with timer.section("b"):
-        pass
-    s = timer.summary()
-    assert set(s) == {"a", "b"} and timer.count["a"] == 3 and s["a"] >= 0.002
-    assert timer.avg["a"] > 0 and "a: " in timer.report() and "ms" in timer.report()
-    tprofiling.synchronize(torch.zeros(2))     # CPU tensors: nothing to wait for
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
