@@ -1309,8 +1309,22 @@ def check_depth_net(data: dict, dev) -> dict:
     l2_cp = float((g_c - g_p).norm() / g_p.norm())
     mono_bf = mono_depth_from_params(raw, arch=arch, dtype=torch.bfloat16, device=dev)
     x = img.to(dev).clone().requires_grad_(True)
+    if dev.type == "cuda":      # the first graphed call captures: its time, the pool's memory
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    t0 = time.perf_counter()
     y_bf = mono_bf(x)
     (g_bf,) = torch.autograd.grad(y_bf, x, cot.to(dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        print(f"  depth net's CUDA graphs (bf16, {len(mono_bf._graphs)} captured): first call "
+              f"(three eager warm-ups, the capture, one replay) {capture_ms:.1f} ms; with the "
+              f"graphs held, reserved {torch.cuda.memory_reserved() - mem0[1]:+,} bytes, "
+              f"allocated {torch.cuda.memory_allocated() - mem0[0]:+,}")
+        require(len(mono_bf._graphs) == 1, "the card's depth-net call did not capture a graph")
     y_bf = y_bf.detach().cpu()
     bf_grad_full = float((g_bf.double().cpu() - g_c).norm() / g_c.norm())
     del mono_bf
@@ -3207,9 +3221,9 @@ def sharded_phase(dev, work: Path, backend: str, world: int, ref: dict) -> dict:
         require(all(x["launches"][k] > 0 for k in steps + _kernels.WARP_KERNELS)
                 and not any(x["plain"].values()),
                 f"[{label}] rank {r}: launches {x['launches']}, plain {x['plain']}")
-    print(f"  [{label}] launches per rank {[x['launches'] for x in res]}; ms (first step, per "
-          f"rank) {[round(x['ms'], 1) for x in res]} beside the single-card pseudo step's "
-          f"{ref['pseudo_ms']:.1f} ms")
+    print(f"  [{label}] launches per rank {[x['launches'] for x in res]}; digest "
+          f"{res[0]['digest']}; ms (first step, per rank) {[round(x['ms'], 1) for x in res]} "
+          f"beside the single-card pseudo step's {ref['pseudo_ms']:.1f} ms")
     check_certify(ranks, world, dev.type)
     return dict(wall=wall, ms={axes: [r["meshes"][axes]["ms"] for r in ranks]
                                for axes in par_axes(world)})

@@ -12,22 +12,39 @@ the range off on the bilinear case, and the port's 5.6e-5 on the bicubic
 one, 1.4e-7 with oneDNN off). bf16 against f32 within 2%
 of the output range (tests/test_dpt.py:109-127), or JAX's own bf16 error
 where larger; bf16's input gradient no further from f32 than 1.25x JAX's
-own."""
+own.
 
-import jax
-import jax.numpy as jnp
+``MonoDepth``'s graphed path: on the CPU every call runs eagerly with its
+spans; the ``card`` tests hold the replayed CUDA graphs bit-equal to the
+eager path on a random bf16 DPT-Hybrid at the LLFF pseudo view's shape
+(run on the card, whose machine has no JAX: ``python -m pytest
+--noconftest -p no:cacheprovider tests/test_torch_depth_net.py -m card``)."""
+
+import gc
+import importlib.util
+from collections import Counter
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from sdpgs_tpu.models import bit as jbit
-from sdpgs_tpu.models import depth_estimator as jde
-from sdpgs_tpu.models import dpt as jdpt
-from sdpgs_tpu.ops import resize as jresize
+try:    # absent beside the card: only the card tests run there
+    import jax
+    import jax.numpy as jnp
+
+    from sdpgs_tpu.models import bit as jbit
+    from sdpgs_tpu.models import depth_estimator as jde
+    from sdpgs_tpu.models import dpt as jdpt
+    from sdpgs_tpu.ops import resize as jresize
+except ImportError:
+    jax = None
 from sdpgs_torch.models import bit as tbit
 from sdpgs_torch.models import depth_estimator as tde
 from sdpgs_torch.models import dpt as tdpt
 from sdpgs_torch.ops import resize as tresize
+from sdpgs_torch.utils import profiling
 from torch_threads import few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-4
@@ -239,3 +256,190 @@ def test_dpt_hybrid_matches_transformers(rng):
         ref = ref_model(x).predicted_depth.numpy()
         got = net(x).numpy()
     np.testing.assert_allclose(got, ref, atol=5e-4, rtol=5e-3)
+
+
+# --- the graphed path ------------------------------------------------------
+
+PSEUDO_HW = (378, 504)      # the LLFF pseudo view (504x378)
+
+
+def span_counts() -> Counter:
+    return Counter(s.name for s in profiling.spans() for _ in range(s.n))
+
+
+def replays_per_iter(units: int):
+    """The benchmark's ``depth_net_replays_per_iter`` on the last stretch of
+    spans, as if it were a profiled chunk of ``units`` iterations."""
+    path = Path(__file__).resolve().parents[1] / "benchmark/metrics/depth_net_replays_per_iter.py"
+    spec = importlib.util.spec_from_file_location("depth_net_replays_per_iter", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    return reader.read(SimpleNamespace(kind="train", trace=object(), traced_units=units))
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "image_without_grad"])
+def test_cpu_call_runs_eagerly_with_its_spans(rng, mode):
+    """On the CPU every call is eager: no graph is captured, the result is
+    the eager call's, and recording gives ``depth_net.forward`` and, where
+    a gradient flows, ``depth_net.backward``, and never ``depth_net.replay``."""
+    tarch = tdpt.DPTArch.tiny_hybrid()
+    mono = tde.mono_depth_from_params(tdpt.random_params(tarch, seed=6), arch=tarch,
+                                      dtype=torch.bfloat16, device="cpu")
+    img = torch.from_numpy(rng.uniform(size=(40, 54, 3)).astype(np.float32)).permute(2, 0, 1)
+    cot = torch.from_numpy(rng.normal(size=(40, 54)).astype(np.float32))
+    x = img.clone().requires_grad_(mode != "image_without_grad")
+    with profiling.recording():
+        with torch.set_grad_enabled(mode == "grad"):
+            y = mono(x)
+        if mode == "grad":
+            (g,) = torch.autograd.grad(y, x, cot)
+    counts = span_counts()
+    assert counts["depth_net.forward"] == 1
+    assert counts["depth_net.backward"] == (mode == "grad")
+    assert counts["depth_net.replay"] == counts["depth_net.capture"] == 0
+    assert replays_per_iter(1) == 0.0       # the net ran, and eagerly
+    assert mono._graphs == {}
+    xr = img.clone().requires_grad_(True)
+    ref = mono._run(xr)[1]
+    assert torch.equal(y.detach(), ref.detach())
+    if mode == "grad":
+        (gr,) = torch.autograd.grad(ref, xr, cot)
+        assert torch.equal(g, gr)
+
+
+def test_replay_reader_is_silent_without_the_net():
+    """A stretch without ``depth_net.forward`` (a plain window) has no
+    reading, where one with the net's eager calls reads 0."""
+    with profiling.recording(), profiling.span("step.forward"):
+        pass
+    assert replays_per_iter(1) is None
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def hybrid_net():
+    """A random bf16 DPT-Hybrid on the card, built once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs on the card")
+    arch = tdpt.DPTArch.hybrid()
+    mono = tde.mono_depth_from_params(tdpt.random_params(arch, seed=0), arch=arch,
+                                      dtype=torch.bfloat16, device="cuda")
+    return mono.net
+
+
+def fresh(net) -> "tde.MonoDepth":
+    """A MonoDepth over ``net`` with no graphs captured yet."""
+    return tde.MonoDepth(net, dtype=torch.bfloat16)
+
+
+def pseudo_image(seed: int, hw=PSEUDO_HW, dev="cuda"):
+    """A [3, H, W] leaf in the pseudo step's layout (a rendered [H, W, 3]
+    colour, permuted), and a cotangent for its depth map."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    img = torch.rand(hw + (3,), generator=gen, device=dev).permute(2, 0, 1)
+    cot = torch.randn(hw, generator=gen, device=dev)
+    return img.detach().requires_grad_(True), cot
+
+
+def eager(mono, x, cot):
+    """The eager path's depth map and image gradient."""
+    x = x.detach().clone().requires_grad_(True)      # clone keeps the permuted strides
+    y = mono._run(x)[1]
+    (g,) = torch.autograd.grad(y, x, cot)
+    return y.detach(), g
+
+
+@pytest.mark.card
+def test_graphed_call_is_bit_equal_to_eager(cuda_device, hybrid_net):
+    """Five images at the pseudo shape: one capture, then every call's
+    depth map and image gradient bit-equal to the eager path's, with one
+    forward and one backward replay a call."""
+    mono = fresh(hybrid_net)
+    ref = [eager(mono, *pseudo_image(s)) for s in range(5)]
+    with profiling.recording():
+        for s, (ry, rg) in enumerate(ref):
+            x, cot = pseudo_image(s)
+            y = mono(x)
+            (g,) = torch.autograd.grad(y, x, cot)
+            assert torch.equal(y, ry) and torch.equal(g, rg), s
+    counts = span_counts()
+    assert counts["depth_net.capture"] == len(mono._graphs) == 1
+    assert counts["depth_net.replay"] == 10
+    assert counts["depth_net.forward"] == counts["depth_net.backward"] == 5
+    assert replays_per_iter(5) == 2.0
+
+
+@pytest.mark.card
+def test_a_second_shape_captures_a_second_pair(cuda_device, hybrid_net):
+    mono = fresh(hybrid_net)
+    with profiling.recording():
+        for s, hw in enumerate([PSEUDO_HW, (240, 320), PSEUDO_HW, (240, 320)]):
+            x, cot = pseudo_image(s, hw)
+            ry, rg = eager(mono, x, cot)
+            y = mono(x)
+            (g,) = torch.autograd.grad(y, x, cot)
+            assert torch.equal(y, ry) and torch.equal(g, rg), hw
+    counts = span_counts()
+    assert counts["depth_net.capture"] == len(mono._graphs) == 2
+    assert counts["depth_net.replay"] == 8
+
+
+@pytest.mark.card
+def test_two_calls_before_one_backward_match_eager(cuda_device, hybrid_net):
+    """A second call while the first awaits its backward runs eagerly and
+    leaves the first's activations alone; after the backward, and after a
+    call whose output was dropped unused, calls replay again."""
+    mono = fresh(hybrid_net)
+    (x1, c1), (x2, c2), (x3, c3) = (pseudo_image(s) for s in (11, 12, 13))
+    refs = [eager(mono, x, c) for x, c in ((x1, c1), (x2, c2), (x3, c3))]
+    mono(x3)            # captures
+    gc.collect()        # the capture's call, unused: its hold is released
+    with profiling.recording():
+        y1, y2 = mono(x1), mono(x2)
+        g1, g2 = torch.autograd.grad([y1, y2], [x1, x2], [c1, c2])
+    assert span_counts()["depth_net.replay"] == 2    # the first call's forward and backward
+    for (y, g), (ry, rg) in zip(((y1, g1), (y2, g2)), refs):
+        assert torch.equal(y, ry) and torch.equal(g, rg)
+    with profiling.recording():
+        y3 = mono(x3)
+        (g3,) = torch.autograd.grad(y3, x3, c3)
+    assert span_counts()["depth_net.replay"] == 2
+    assert torch.equal(y3, refs[2][0]) and torch.equal(g3, refs[2][1])
+
+
+@pytest.mark.card
+def test_a_second_backward_raises(cuda_device, hybrid_net):
+    """The gradient graph reuses the activations' memory as it frees them,
+    so a call's retained backward cannot run twice: the second raises, and
+    the next call replays again."""
+    mono = fresh(hybrid_net)
+    (x1, c1), (x2, c2) = pseudo_image(21), pseudo_image(22)
+    ry, rg = eager(mono, x2, c2)
+    y1 = mono(x1)
+    torch.autograd.grad(y1, x1, c1, retain_graph=True)
+    with pytest.raises(RuntimeError, match="one backward"):
+        torch.autograd.grad(y1, x1, c1)
+    with profiling.recording():
+        y2 = mono(x2)
+        (g2,) = torch.autograd.grad(y2, x2, c2)
+    assert span_counts()["depth_net.replay"] == 2
+    assert torch.equal(y2, ry) and torch.equal(g2, rg)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("mode", ["no_grad", "image_without_grad"])
+def test_calls_without_a_gradient_run_eagerly(cuda_device, hybrid_net, mode):
+    mono = fresh(hybrid_net)
+    x, _ = pseudo_image(31)
+    x = x.detach().requires_grad_(mode != "image_without_grad")
+    with profiling.recording(), torch.set_grad_enabled(mode != "no_grad"):
+        y = mono(x)
+        ref = mono._run(x)[1]
+    assert torch.equal(y, ref)
+    assert mono._graphs == {} and span_counts()["depth_net.replay"] == 0
