@@ -29,6 +29,7 @@ import torch
 
 from sdpgs_torch import _kernels
 from sdpgs_torch.config import RasterizeConfig
+from sdpgs_torch.ops.rasterize.composite_cuda import NPAY, squares
 from sdpgs_torch.ops.rasterize.preprocess import Preprocessed
 
 
@@ -41,10 +42,66 @@ class Binning(NamedTuple):
     num_entries: torch.Tensor  # 0-d int32: total (tile, gaussian) pairs (all tiles)
     rects: torch.Tensor        # [P] int32 packed tile rects by Gaussian id (empty for
                                # the culled): K5's entry map reads them
+    tile_totals: torch.Tensor  # [T] int32 entries per tile before the K cap
+
+
+# The kernels index a table slot in int32: tile * K + rank (K2), r * K + k
+# (K3, K5's entry map).
+INDEX_MAX = (1 << 31) - 1
+# One render's K-sized buffers may take this share of the card's memory; the
+# rest holds the cloud, Adam's state, the targets and the activations.
+DEVICE_SHARE = 0.25
+# The CPU has no device memory to read: a fixed budget (a quarter of a 64-GiB
+# host) keeps the rule, and the tests, deterministic there.
+CPU_BUDGET = 1 << 34
 
 
 def tile_grid(width: int, height: int, tile: int) -> tuple[int, int]:
     return -(-width // tile), -(-height // tile)
+
+
+def scratch_words(P: int) -> int:
+    """K2's coverage words per tile for P sorted Gaussians (binning.cu:
+    words_per_tile): ceil(P / 32) rounded up to a whole 16-byte load."""
+    return -(-P // 128) * 4
+
+
+def k_buffer_bytes(num_tiles: int, K: int, tile: int, capacity: int) -> int:
+    """Bytes of one render's buffers that grow with K (the [T, K] int32
+    table and K5's partials, [T * squares, K, 13] f32), with K2's coverage
+    scratch, which grows with the capacity."""
+    return 4 * num_tiles * (K * (1 + squares(tile) * NPAY) + scratch_words(capacity))
+
+
+def k_buffer_budget(device) -> int:
+    """The bytes :func:`max_per_tile_ceiling` allows: DEVICE_SHARE of the
+    card's memory, or CPU_BUDGET on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_BUDGET
+    return int(DEVICE_SHARE * torch.cuda.get_device_properties(device).total_memory)
+
+
+def max_tiles_per_gaussian_ceiling(capacity: int, budget: int) -> int:
+    """The largest per-Gaussian cap D the ladder may reach: the largest
+    power of two whose K5 entry map ([capacity, D] int32) fits ``budget``
+    bytes."""
+    D = 1
+    while 4 * capacity * 2 * D <= budget:
+        D *= 2
+    return D
+
+
+def max_per_tile_ceiling(num_tiles: int, tile: int, capacity: int, budget: int) -> int:
+    """The largest per-tile cap K the ladder may reach on a grid of
+    ``num_tiles`` tiles: the largest power of two whose slot indices fit in
+    int32 (``num_tiles * K <= INDEX_MAX``) and whose buffers fit ``budget``
+    bytes (:func:`k_buffer_bytes`)."""
+    K = 1
+    while (num_tiles * 2 * K <= INDEX_MAX
+           and k_buffer_bytes(num_tiles, 2 * K, tile, capacity) <= budget):
+        K *= 2
+    return K
 
 
 def tile_rect(mean2d, radius, tiles_x: int, tiles_y: int, tile: int):
@@ -192,7 +249,8 @@ def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeCon
                   tile_range: tuple[int, int] | None = None) -> Binning:
     """Depth sort, then the [T, K] table, counts and capacity telemetry;
     with ``tile_range=(t0, n_local)`` the rows of those tiles only (T =
-    n_local), their overflow, and the view's clipped and num_entries."""
+    n_local), their counts, totals and overflow, and the view's clipped and
+    num_entries."""
     tiles_x, tiles_y = tile_grid(width, height, cfg.tile)
     t0, num_tiles = (0, tiles_x * tiles_y) if tile_range is None else tile_range
     K = cfg.max_per_tile
@@ -213,4 +271,5 @@ def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeCon
         clipped=clipped,
         num_entries=num_entries,
         rects=packed,
+        tile_totals=totals,
     )

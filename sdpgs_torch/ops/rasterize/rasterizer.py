@@ -37,6 +37,8 @@ class RenderOutput(NamedTuple):
     clipped: torch.Tensor     # telemetry: tile slots dropped by per-Gaussian cap D
     slab: torch.Tensor        # telemetry of the JAX package's windowed
                               # payload backward; always 0 in the port
+    tile_counts: torch.Tensor  # [T] int32 entries listed per tile: K3's and K5's work
+    tile_totals: torch.Tensor  # [T] int32 entries per tile before the K cap
 
 
 def _pad_row(a: torch.Tensor) -> torch.Tensor:
@@ -145,6 +147,8 @@ def rasterize(
         overflow=bins.overflow,
         clipped=bins.clipped,
         slab=torch.zeros((), dtype=torch.int32, device=dev),
+        tile_counts=bins.tile_counts,
+        tile_totals=bins.tile_totals,
     )
 
 
@@ -191,4 +195,6 @@ def rasterize_naive(xyz, cov3d, opacity, color, feature, alive, cam: Camera, bg,
         overflow=zero,
         clipped=zero,
         slab=zero,
+        tile_counts=torch.zeros((0,), dtype=torch.int32, device=dev),   # no table
+        tile_totals=torch.zeros((0,), dtype=torch.int32, device=dev),
     )

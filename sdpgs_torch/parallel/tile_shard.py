@@ -59,7 +59,9 @@ def rasterize_tile_sharded(
     """Differentiable render of one view with the tile grid sharded over
     ``mesh``'s ``axis``; the same outputs as ``rasterize`` on every rank of
     the axis: overflow summed over the shards, clipped and radii replicated,
-    slab 0. The inputs are replicated on every rank of the axis."""
+    slab 0; tile_counts and tile_totals those of this rank's tiles (the
+    Trainer sums and maxes them over the ranks at its log points). The
+    inputs are replicated on every rank of the axis."""
     group = mesh.group(axis)
     n, index = mesh.shape[axis], mesh.coords[axis]
     tiles_x, tiles_y = binning_lib.tile_grid(cam.width, cam.height, cfg.tile)
@@ -89,6 +91,8 @@ def rasterize_tile_sharded(
         overflow=overflow,
         clipped=bins.clipped,
         slab=torch.zeros((), dtype=torch.int32, device=dev),
+        tile_counts=bins.tile_counts,
+        tile_totals=bins.tile_totals,
     )
 
 

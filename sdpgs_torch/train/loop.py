@@ -42,6 +42,7 @@ from sdpgs_torch.losses import reproject_fused_depth_batch
 from sdpgs_torch.losses import ssim as ssim_fn
 from sdpgs_torch.opt.densify import densify_and_prune, reset_opacity
 from sdpgs_torch.ops.knn import knn
+from sdpgs_torch.ops.rasterize import binning
 from sdpgs_torch.render import render
 from sdpgs_torch.train.state import TrainState, save_checkpoint
 from sdpgs_torch.train.step import PseudoInputs, ViewBatch, make_train_step
@@ -106,9 +107,7 @@ class Trainer:
     # one card unless __init__ forms a mesh; rank 0 prints and writes
     mesh = None
     is_main = True
-    MAX_PER_TILE_CEILING = 8192
     MAX_GRAD_WINDOW_SLACK = 2.0
-    MAX_TILES_PER_GAUSSIAN_CEILING = 32
 
     def __init__(self, cfg: TrainConfig, scene=None, mono_depth_fn=None, device=None):
         n_mesh = cfg.mesh_data * cfg.mesh_gauss * cfg.mesh_tile
@@ -158,6 +157,7 @@ class Trainer:
         # would cost more host time than the step's own launches
         self._batch_cache: Dict[tuple, ViewBatch] = {}
         self._reproj_queue: list = []
+        self._renders = 0       # the steps' renders since the last log point
         tc = scene.train_cameras
         self._train_depths = torch.from_numpy(np.stack(
             [c.depth_mono if c.depth_mono is not None
@@ -284,10 +284,35 @@ class Trainer:
         return fires
 
     def _set_raster(self, new, msg: str) -> None:
-        if self.is_main:
-            print(f"{msg} (new step)", flush=True)
-        self.cfg.raster = new
-        self._steps.clear()
+        with span("train.ladder"):
+            if self.is_main:
+                print(f"{msg} (new step)", flush=True)
+            self.cfg.raster = new
+            self._steps.clear()
+
+    def _ceiling_inputs(self) -> tuple:
+        """(tiles of the train views' grid, capacity, budget) that the
+        ladder's ceilings are derived from."""
+        cam = self.scene.train_cameras[0]
+        tiles_x, tiles_y = binning.tile_grid(cam.width, cam.height, self.cfg.raster.tile)
+        return (tiles_x * tiles_y, self.state.gaussians.capacity,
+                binning.k_buffer_budget(self.device))
+
+    def max_per_tile_ceiling(self) -> int:
+        """The largest K the ladder reaches: the largest whose slot indices
+        fit the kernels' int32 and whose K-sized buffers fit the share of
+        the device's memory that ``binning.max_per_tile_ceiling`` allows, at
+        the train views' tile grid and the cloud's capacity. (The JAX
+        package fixes 8,192, the most its TPU kernels' VMEM holds.)"""
+        tiles, capacity, budget = self._ceiling_inputs()
+        return binning.max_per_tile_ceiling(tiles, self.cfg.raster.tile, capacity, budget)
+
+    def max_tiles_per_gaussian_ceiling(self) -> int:
+        """The largest D the ladder reaches: the largest whose K5 entry map
+        fits the same share (``binning.max_tiles_per_gaussian_ceiling``).
+        (The JAX package fixes 32.)"""
+        _, capacity, budget = self._ceiling_inputs()
+        return binning.max_tiles_per_gaussian_ceiling(capacity, budget)
 
     def _maybe_grow_max_per_tile(self, overflow: int) -> None:
         """Table overflow: double the per-tile cap K up to a ceiling (JAX's
@@ -296,7 +321,7 @@ class Trainer:
         and run only with that kernel on; K2 has no such capacity, so here
         K is the only rung and ``rank_block_*`` keep their values."""
         r = self.cfg.raster
-        if r.max_per_tile >= self.MAX_PER_TILE_CEILING:
+        if r.max_per_tile >= self.max_per_tile_ceiling():
             print(f"binning overflow={overflow}: K at ceiling {r.max_per_tile}; dropping "
                   "excess entries", flush=True)
             return
@@ -323,7 +348,7 @@ class Trainer:
         """Clipped rects (a splat over more than D tiles lost its tail
         tiles): double D up to a ceiling."""
         r = self.cfg.raster
-        if r.max_tiles_per_gaussian >= self.MAX_TILES_PER_GAUSSIAN_CEILING:
+        if r.max_tiles_per_gaussian >= self.max_tiles_per_gaussian_ceiling():
             print(f"binning clipped={clipped}: D at ceiling {r.max_tiles_per_gaussian}; "
                   "dropping rect tails", flush=True)
             return
@@ -331,18 +356,32 @@ class Trainer:
         self._set_raster(new, f"binning clipped={clipped}: per-Gaussian rect cap "
                               f"D={r.max_tiles_per_gaussian} -> {new.max_tiles_per_gaussian}")
 
-    def _react_to_telemetry(self) -> Tuple[int, int]:
-        """Read the running maxima of the drops since the last look (maxed
-        over the ranks of a mesh, so that every rank grows alike), grow the
-        capacities they call for, and reset them. Returns (overflow,
-        clipped)."""
+    def _react_to_telemetry(self) -> Tuple[int, int, int]:
+        """Read the running maxima of the drops and the raster counters
+        since the last look in one read (over a mesh the maxima maxed and
+        the entries summed over the ranks, so that every rank grows alike),
+        record the counters as the spans ``raster.entries`` and
+        ``raster.tile_max`` (n the value, unit the renders they cover),
+        grow the capacities the drops call for, and reset what was read.
+        Returns (overflow, clipped, the largest per-tile total)."""
         s = self.state
-        seen = torch.stack([s.max_overflow, s.max_clipped, s.max_slab])
+        seen = torch.stack([s.max_overflow, s.max_clipped, s.max_slab, s.raster_tile_max,
+                            s.raster_entries])
+        renders, self._renders = self._renders, 0
         if self.mesh is not None:
             from sdpgs_torch.parallel import comm
 
-            comm.all_max(seen, dist.group.WORLD)
-        mo, mc, ms = (int(v) for v in seen.tolist())
+            comm.all_max(seen[:4], dist.group.WORLD)
+            comm.all_sum(seen[4:], dist.group.WORLD)
+            renders *= dist.get_world_size()
+        mo, mc, ms, tile_max, entries = (int(v) for v in seen.tolist())
+        s.raster_entries.zero_()
+        s.raster_tile_max.zero_()
+        # empty spans, so that the log point keeps its idle
+        with span("raster.entries", unit=f"{renders} renders", n=entries):
+            pass
+        with span("raster.tile_max", unit=f"{renders} renders", n=tile_max):
+            pass
         if mo > 0:
             self._maybe_grow_max_per_tile(mo)
         if mc > 0:
@@ -352,7 +391,7 @@ class Trainer:
         if mo > 0 or mc > 0 or ms > 0:
             for k in ("max_overflow", "max_clipped", "max_slab"):
                 getattr(s, k).zero_()
-        return mo, mc
+        return mo, mc, tile_max
 
     def restore(self, checkpoint_dir, step: int) -> None:
         """Resume from ``<checkpoint_dir>/ckpt_<step>.pt`` (reference
@@ -397,6 +436,7 @@ class Trainer:
                 with span("train.step"):
                     self.state, metrics = step(self.state, batch, self.prototypes, self.bg,
                                                self.spatial_lr_scale, pseudo, device=dev)
+                self._renders += len(batch.cameras) + (pseudo is not None)
 
                 self._maybe_densify(iteration)
                 self._maybe_reset_opacity(iteration)
@@ -405,14 +445,15 @@ class Trainer:
                     with span("train.log"):
                         # the running maxima folded every step's drops since
                         # the last look, so none slips between log points
-                        mo, mc = self._react_to_telemetry()
+                        mo, mc, tile_max = self._react_to_telemetry()
                         m = {k: float(getattr(metrics, k)) for k in ("loss", "l1", "psnr")}
                         alive = int(metrics.num_alive)
                         rate = (iteration - first_iter + 1) / (time.time() - t_start)
                         if self.is_main:
                             print(f"[{iteration}/{iterations}] loss={m['loss']:.5f} "
                                   f"l1={m['l1']:.5f} psnr={m['psnr']:.2f} alive={alive} "
-                                  f"overflow={mo} clipped={mc} ({rate:.2f} it/s)", flush=True)
+                                  f"overflow={mo} clipped={mc} tile_max={tile_max} "
+                                  f"({rate:.2f} it/s)", flush=True)
                         history.append({"iter": iteration, "loss": m["loss"],
                                         "psnr": m["psnr"], "alive": alive})
 

@@ -24,6 +24,9 @@ from sdpgs_torch.opt.densify import DensifyStats, init_stats
 
 STAT_FIELDS = ("xyz_gradient_accum", "denom", "max_radii2d")
 TELEMETRY = ("max_overflow", "max_clipped", "max_slab")
+# The raster work since the host last looked; a checkpoint without them
+# loads with zeros.
+RASTER_COUNTERS = ("raster_entries", "raster_tile_max")
 
 
 @dataclass
@@ -39,6 +42,11 @@ class TrainState:
     max_overflow: torch.Tensor
     max_clipped: torch.Tensor
     max_slab: torch.Tensor
+    # The (tile, Gaussian) entries the renders listed since the host last
+    # looked, summed (0-d int64), and the largest uncapped per-tile total
+    # among them (0-d int32): the raster work K3 and K5 did, and what K needs.
+    raster_entries: torch.Tensor
+    raster_tile_max: torch.Tensor
     # On a mesh, the Gaussian slots [lo, hi) whose moments and statistics
     # this rank holds (parallel/sharding.py); None: all of them.
     slots: Optional[Tuple[int, int]] = None
@@ -55,11 +63,12 @@ class TrainState:
         if gaussians.device.type != dev.type:
             raise ValueError(f"Gaussians live on {gaussians.device}, train device is {dev}")
         gaussians.requires_grad_(True)
-        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+        zero = lambda dtype=torch.int32: torch.zeros((), dtype=dtype, device=dev)  # noqa: E731
         return cls(gaussians=gaussians, opt_state=adam_init(gaussians),
                    stats=init_stats(gaussians.capacity, device=dev), step=0,
                    generator=torch.Generator(device=dev).manual_seed(seed),
-                   max_overflow=zero(), max_clipped=zero(), max_slab=zero())
+                   max_overflow=zero(), max_clipped=zero(), max_slab=zero(),
+                   raster_entries=zero(torch.int64), raster_tile_max=zero())
 
     @classmethod
     def from_numpy(cls, arrays: Mapping, max_sh_degree: int = 3, seed: int = 0,
@@ -68,8 +77,10 @@ class TrainState:
         under ``gaussians`` (field -> array), ``mu`` and ``nu`` (field ->
         array), ``stats`` (``xyz_gradient_accum``, ``denom``,
         ``max_radii2d``), and the scalars ``adam_step``, ``step``,
-        ``max_overflow``, ``max_clipped``, ``max_slab``. The JAX random key
-        is not carried: the generator is seeded with ``seed``."""
+        ``max_overflow``, ``max_clipped``, ``max_slab``, and optionally
+        ``raster_entries``, ``raster_tile_max`` (0 where absent, as in the
+        JAX package's state and older checkpoints). The JAX random key is
+        not carried: the generator is seeded with ``seed``."""
         dev = default_device(device)
         g = Gaussians.from_numpy(arrays["gaussians"], max_sh_degree=max_sh_degree, device=dev)
         state = cls.create(g, seed=seed, device=dev)
@@ -85,6 +96,8 @@ class TrainState:
         state.step = int(arrays["step"])
         for k in TELEMETRY:
             setattr(state, k, t(arrays[k], torch.int32))
+        for k in RASTER_COUNTERS:
+            getattr(state, k).fill_(int(arrays.get(k, 0)))
         return state
 
     def to_numpy(self) -> dict:
@@ -100,7 +113,7 @@ class TrainState:
             adam_step=self.opt_state.step,
             stats={k: n(getattr(self.stats, k)) for k in STAT_FIELDS},
             step=self.step,
-            **{k: int(getattr(self, k)) for k in TELEMETRY},
+            **{k: int(getattr(self, k)) for k in TELEMETRY + RASTER_COUNTERS},
         )
 
 

@@ -51,6 +51,7 @@ from sdpgs_torch.losses import (
     segment_pearson_loss,
     ssim,
 )
+from sdpgs_torch.ops.rasterize.rasterizer import RenderOutput
 from sdpgs_torch.opt.adam import TRAINABLE, adam_update, learning_rates
 from sdpgs_torch.opt.densify import (
     DensifyStats,
@@ -116,6 +117,7 @@ class Gradients(NamedTuple):
     l1: torch.Tensor                   # [V]
     images: torch.Tensor               # [V, 3, H, W] rendered, detached
     outs: list                         # the per-view RenderOutputs
+    pseudo_out: Optional[RenderOutput] = None   # the pseudo view's render
 
 
 def _view_losses_from_out(out, gt_img, mono, gt_feat, seg, protos, cfg: TrainConfig,
@@ -215,6 +217,7 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
             images.append(image.detach())
             outs.append(out)
         loss = torch.stack(losses).mean()
+        out_ps = None
         if pseudo is not None:
             # no offset: the densification statistics come from the train
             # views only (train.py:218-221)
@@ -228,7 +231,19 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
                    for k, p, d in zip(TRAINABLE, params, grads[:len(params)])}
     return Gradients(loss=loss.detach(), params=param_grads,
                      offsets=torch.stack(grads[len(params):]), l1=torch.stack(l1s),
-                     images=torch.stack(images), outs=outs)
+                     images=torch.stack(images), outs=outs,
+                     pseudo_out=out_ps)
+
+
+def _count_raster_work(state: TrainState, grads: Gradients) -> None:
+    """Fold every render of the step (the pseudo view's too) into the
+    state's running sum of listed entries and running max of the per-tile
+    totals: four device operations a render, no synchronisation, and none
+    on a render outside a train step."""
+    rendered = grads.outs if grads.pseudo_out is None else grads.outs + [grads.pseudo_out]
+    for o in rendered:
+        state.raster_entries.add_(o.tile_counts.sum())
+        torch.maximum(state.raster_tile_max, o.tile_totals.amax(), out=state.raster_tile_max)
 
 
 def _train_feature(outs, idx: int, cfg: TrainConfig, data_mesh) -> torch.Tensor:
@@ -324,6 +339,7 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
             state.max_overflow = torch.maximum(state.max_overflow, metrics.overflow)
             state.max_clipped = torch.maximum(state.max_clipped, metrics.clipped)
             state.max_slab = torch.maximum(state.max_slab, metrics.slab)
+            _count_raster_work(state, grads)
         return state, metrics
 
     return step
@@ -383,6 +399,7 @@ def _mesh_update(state: TrainState, batch: ViewBatch, grads: Gradients, cfg: Tra
     state.max_overflow = torch.maximum(state.max_overflow, metrics.overflow)
     state.max_clipped = torch.maximum(state.max_clipped, metrics.clipped)
     state.max_slab = torch.maximum(state.max_slab, metrics.slab)
+    _count_raster_work(state, grads)
     return state, metrics
 
 

@@ -31,6 +31,7 @@ from sdpgs_torch.core.camera import Camera
 from sdpgs_torch.core.gaussians import BUFFER_FIELDS, PARAM_FIELDS, Gaussians
 from sdpgs_torch.data import synthetic as tsynthetic
 from sdpgs_torch.data.camera_utils import LoadedCamera
+from sdpgs_torch.ops.rasterize import binning
 from sdpgs_torch.train import loop as tloop
 from test_torch_adam import _assert_same_arrays
 from test_torch_pseudo_step import smooth_mono
@@ -201,40 +202,55 @@ def test_synthetic_scene_matches_jax():
     np.testing.assert_array_equal(cam.full_proj.numpy(), np.asarray(jcam.full_proj))
 
 
-def policy_trainer():
-    t = tloop.Trainer.__new__(tloop.Trainer)   # the policy alone: no scene
+def policy_trainer(width=1297, height=840, capacity=1 << 22):
+    """The policy alone: no scene, only the size the ceiling is derived
+    from (by default mip-NeRF 360 at 1/4 resolution, 1,107 32-pixel tiles,
+    on the CPU's fixed budget)."""
+    t = tloop.Trainer.__new__(tloop.Trainer)
     t.cfg = tconfig.TrainConfig()
     t._steps = {"dummy": object()}
+    t.device = torch.device("cpu")
+    t.scene = SimpleNamespace(train_cameras=[SimpleNamespace(width=width, height=height)])
+    t.state = SimpleNamespace(gaussians=SimpleNamespace(capacity=capacity))
     return t
 
 
 def test_capacity_ladder_policy():
     t = policy_trainer()
+    ceiling = t.max_per_tile_ceiling()
+    assert ceiling == binning.max_per_tile_ceiling(41 * 27, 32, 1 << 22, binning.CPU_BUDGET)
+    assert ceiling > 8192                     # past the JAX package's fixed cap
     r0 = t.cfg.raster
     t._maybe_grow_max_per_tile(73)
     assert t.cfg.raster.max_per_tile == 2 * r0.max_per_tile and not t._steps
     # JAX's rank-kernel rungs (S, pooled tail, grouped) never fire in the port
     for k in ("rank_block_slots", "rank_block_tail", "rank_block_grouped"):
         assert getattr(t.cfg.raster, k) == getattr(r0, k), k
-    while t.cfg.raster.max_per_tile < tloop.Trainer.MAX_PER_TILE_CEILING:
+    while t.cfg.raster.max_per_tile < ceiling:
         t._maybe_grow_max_per_tile(1)
-    assert t.cfg.raster.max_per_tile == 8192
+    assert t.cfg.raster.max_per_tile == ceiling
     t._steps = {"dummy": object()}
     t._maybe_grow_max_per_tile(5)             # at the ceiling: no new step
-    assert t._steps and t.cfg.raster.max_per_tile == 8192
+    assert t._steps and t.cfg.raster.max_per_tile == ceiling
 
+    d_ceiling = t.max_tiles_per_gaussian_ceiling()
+    assert d_ceiling == binning.max_tiles_per_gaussian_ceiling(1 << 22, binning.CPU_BUDGET)
+    assert d_ceiling > 32                     # past the JAX package's fixed cap
     t._maybe_grow_tiles_per_gaussian(12)
     assert t.cfg.raster.max_tiles_per_gaussian == 16 and not t._steps
     t._maybe_grow_tiles_per_gaussian(12)
     assert t.cfg.raster.max_tiles_per_gaussian == 32
+    while t.cfg.raster.max_tiles_per_gaussian < d_ceiling:
+        t._maybe_grow_tiles_per_gaussian(12)
+    assert t.cfg.raster.max_tiles_per_gaussian == d_ceiling
     t._steps = {"dummy": object()}
     t._maybe_grow_tiles_per_gaussian(3)
-    assert t._steps and t.cfg.raster.max_tiles_per_gaussian == 32
+    assert t._steps and t.cfg.raster.max_tiles_per_gaussian == d_ceiling
 
     s0 = t.cfg.raster.grad_window_slack
     t._maybe_grow_slab(50)
     assert t.cfg.raster.grad_window_slack == min(2.0, s0 * 1.3) and not t._steps
-    assert t.cfg.raster.max_per_tile == 8192   # slab drops move neither K nor D
+    assert t.cfg.raster.max_per_tile == ceiling   # slab drops move neither K nor D
     for _ in range(10):
         t._maybe_grow_slab(50)
     assert t.cfg.raster.grad_window_slack == 2.0
