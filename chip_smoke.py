@@ -291,6 +291,9 @@ PROTOCOL_ITERATIONS = 2050    # past the pseudo window's start at 2,000
 PROTOCOL_LOG_EVERY = 50
 FULL_EVAL_ITERATIONS = 30
 BENCH_SHAPE_STEPS = 3         # its sharded steps per mesh (scripts/certify_bench_shape.py)
+ADAM_SLOTS = (1 << 22, 524_288)   # fused Adam: the r4 and m360 cells' capacities
+ADAM_FLOATS = 62              # trainable floats a slot at SH 3
+ADAM_BYTES = 7 * 4            # a float: parameter, gradient and moments read; three written
 
 
 def card_line() -> str:
@@ -1002,6 +1005,7 @@ def train_phase(rng, dev) -> dict:
     require(not any(launches[k] for k in _kernels.WARP_KERNELS + _kernels.SORT_KERNELS
                     + _kernels.PROBE_KERNELS),
             "K6, K7 or K8 ran on the plain train path")
+    require(launches["adam"] == TRAIN_STEPS, "fused Adam did not launch once per train step")
     require(not any(plain.values()), "a plain version ran on the train path")
     require(all(bool(torch.isfinite(p).all()) for p in state.gaussians.parameters()),
             "non-finite parameters after training")
@@ -3363,6 +3367,80 @@ def k1_k4_times(k1_args, k4_args) -> tuple:
             cuda_ms(lambda: pp.preprocess_rows_bwd(*k4_args[:2], cam, *k4_args[3:])))
 
 
+def adam_inputs(P: int, dev, seed: int) -> tuple:
+    """Parameters, gradients laid out as the train step hands them over
+    (the features' narrow views of one [P, 16, 3] gradient, xyz's the
+    transpose of [3, P] rows) and non-zero moments, on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    params = dict(xyz=r(P, 3), features_dc=r(P, 1, 3), features_rest=r(P, 15, 3),
+                  scaling=r(P, 3), rotation=r(P, 4), opacity=r(P, 1), language_feature=r(P, 3))
+    feats = r(P, 16, 3, scale=1e-3)
+    grads = dict(xyz=r(3, P, scale=1e-4).T, features_dc=feats[:, :1], features_rest=feats[:, 1:],
+                 scaling=r(P, 3, scale=1e-2), rotation=r(P, 4, scale=1e-3),
+                 opacity=r(P, 1, scale=1e-2), language_feature=r(P, 3, scale=1e-3))
+    mu = {k: r(*v.shape, scale=1e-3) for k, v in params.items()}
+    nu = {k: r(*v.shape, scale=1e-3).square() for k, v in params.items()}
+    return params, grads, mu, nu
+
+
+def adam_times(dev) -> dict:
+    """The fused Adam at the r4 and m360 cells' capacities: one step
+    bit-equal to the op chain on the card from one state, then the median
+    time of each (the kernel, one launch; the chain, 98), beside the
+    bytes bound."""
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.config import OptimizationConfig
+    from sdpgs_torch.opt import adam
+
+    lrs = adam.learning_rates(OptimizationConfig(), 5600, 4.7)
+    out = {}
+    for P in ADAM_SLOTS:
+        params, grads, mu, nu = adam_inputs(P, dev, seed=17)
+        ref = [{k: v.clone() for k, v in d.items()} for d in (params, mu, nu)]
+        before = _kernels.LAUNCHES["adam"]
+        adam.fused_adam(params, grads, mu, nu, lrs, 5600)
+        adam.adam_update_plain(ref[0], grads, ref[1], ref[2], lrs, 5600)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a[k], b[k]) for a, b in zip((params, mu, nu), ref)
+                    for k in adam.TRAINABLE)
+        require(equal, f"fused Adam at {P} slots differs from the op chain")
+        require(_kernels.LAUNCHES["adam"] == before + 1, "fused Adam did not launch once")
+        ms = cuda_ms(lambda: adam.fused_adam(params, grads, mu, nu, lrs, 5600))
+        chain_ms = cuda_ms(lambda: adam.adam_update_plain(ref[0], grads, ref[1], ref[2], lrs,
+                                                          5600))
+        nbytes = ADAM_BYTES * ADAM_FLOATS * P
+        out[P] = dict(ms=ms, chain_ms=chain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                      tb_per_s=nbytes / ms * 1e-9, equal=equal)
+        print(f"  fused_adam at {P} slots: {ms:.4f} ms ({out[P]['tb_per_s']:.3f} TB/s, "
+              f"{out[P]['ms'] / out[P]['bound_ms']:.3f}x the bound {out[P]['bound_ms']:.4f} ms "
+              f"over {nbytes} B); the op chain {chain_ms:.4f} ms; bit-equal {equal}", flush=True)
+        del params, grads, mu, nu, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def adam_times_main() -> int:
+    """``--adam-times``: build the kernels, then adam_times, as one JSON line."""
+    from sdpgs_torch import _kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    _kernels.build()
+    in_src = False
+    for line in _kernels.BUILD_LOG.splitlines():
+        in_src = line == "== adam.cu" if line.startswith("== ") else in_src
+        if in_src and ("registers" in line or "spill" in line or "entry function" in line):
+            print("  " + line.strip())
+    print(json.dumps({"adam": adam_times(torch.device("cuda"))}))
+    return 0
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -3599,6 +3677,7 @@ def drive(dev: torch.device, work: Path) -> int:
         k8_ms = cuda_ms(lambda: launch_floor(*probe_args, device=dev))
         k8_plain = cuda_ms(lambda: launch_floor_plain(*probe_args))
         k8_lib = cuda_ms(lambda: probe_args[0] + probe_args[1] + probe_args[2][:, 0])
+    adam_shapes = adam_times(dev)
     nsh = 3 * (SH_DEGREE + 1) ** 2
     npix = cfg.tile ** 2
     # K2 reads n_valid rects and ids; K3 and K5 the listed entries and the
@@ -3666,11 +3745,17 @@ def drive(dev: torch.device, work: Path) -> int:
              bound_ms=bounds[b][0], bound_by=bounds[b][1], library_ms=lib_ms)
         for name, src, rep, kern, counts, _, b, err, ms, plain_ms, lib_ms in rows
     ]
-    for r, row in zip(records, rows):
+    adam_r4 = adam_shapes[ADAM_SLOTS[0]]
+    records.append(dict(name="fused_adam", route="cuda", source="sdpgs_torch/csrc/adam.cu",
+                        replaces="none: XLA fused the JAX package's update",
+                        launches=cli["launches"]["adam"], max_abs_err=0.0, ms=adam_r4["ms"],
+                        plain_ms=adam_r4["chain_ms"], bound_ms=adam_r4["bound_ms"],
+                        bound_by="bytes", library_ms=None))
+    for r, per in zip(records, [row[5] for row in rows] + [per_tr]):
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms{lib}), bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, {r['launches']} launches "
-              f"{row[5]}")
+              f"{per}")
     print(f"  composite_fwd: the unculled walk's operations, {pairs} pairs visited x "
           f"{ALPHA_OPS} + {contrib} contributing x {BLEND_OPS}, would take "
           f"{k3_unculled[0] * 1e3:.2f} us; K3 tested {main_check['k3_tested']} of the {pairs}")
@@ -3697,4 +3782,5 @@ def drive(dev: torch.device, work: Path) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(k5_times_main() if sys.argv[1:] == ["--k5-times"] else main())
+    modes = {"--k5-times": k5_times_main, "--adam-times": adam_times_main}
+    sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

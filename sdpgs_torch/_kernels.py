@@ -16,7 +16,8 @@ K4 and K5 (``BACKWARD_KERNELS``) run in the backward of a train step; K6
 branch. K7 (``SORT_KERNELS``, the stable depth sort of ``ops/sort.py``)
 and K8 (``PROBE_KERNELS``, the launch-floor probe of
 ``ops/launch_floor.py``) each serve their own entry point and lie on no
-render or train path.
+render or train path. ``OPT_KERNELS`` holds the fused Adam of
+``opt/adam.py``, one launch a train step.
 """
 
 from __future__ import annotations
@@ -49,13 +50,17 @@ SOURCES = {
     "warp_zbuf.cu": ["-fmad=false"],
     "sort.cu": [],
     "launch_floor.cu": [],
+    # Adam rounds every operation as PyTorch's op chain does on the card
+    "adam.cu": ["-fmad=false"],
 }
 FORWARD_KERNELS = ("preprocess", "binning", "composite")
 BACKWARD_KERNELS = ("preprocess_bwd", "composite_bwd")
 WARP_KERNELS = ("warp_zbuf",)
 SORT_KERNELS = ("sort",)
 PROBE_KERNELS = ("launch_floor",)
-KERNELS = FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS + SORT_KERNELS + PROBE_KERNELS
+OPT_KERNELS = ("adam",)
+KERNELS = (FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS + SORT_KERNELS + PROBE_KERNELS
+           + OPT_KERNELS)
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -102,6 +107,9 @@ _SIGNATURES = {
     "sdpgs_sort_scratch_words": [_I],
     # packed, gid, tid, out, P, D, stream
     "sdpgs_launch_floor": [_P, _P, _P, _P, _I, _I, _P],
+    # groups (host array of SdpgsAdamGroup), n_groups, b1, 1 - b1, b2, 1 - b2, 1 / bc1,
+    # 1 / bc2, eps, stream
+    "sdpgs_fused_adam": [_P, _I, _F, _F, _F, _F, _F, _F, _F, _P],
 }
 _lib = None
 
