@@ -921,7 +921,7 @@ def check_step_card_vs_cpu(rng, dev) -> None:
     metric_rel = {k: abs(float(getattr(m_c, k)) - float(getattr(m_p, k)))
                   / max(abs(float(getattr(m_p, k))), 1e-30) for k in ("loss", "l1", "psnr")}
     exact = {k: (int(getattr(m_c, k)), int(getattr(m_p, k)))
-             for k in ("overflow", "clipped", "num_alive", "slab")}
+             for k in ("overflow", "clipped", "num_alive")}
     print(f"train step, card vs CPU at {SMALL['width']}x{SMALL['height']}, capacity "
           f"{SMALL['capacity']}: gradient max |diff| / field max "
           f"{ {k: f'{v:.1e}' for k, v in rel.items()} } (limit {STEP_GRAD_TOL:g}); "
@@ -2913,7 +2913,7 @@ def par_pseudo(data: dict, dev):
 
 def par_metrics(m) -> dict:
     return {k: float(getattr(m, k)) for k in ("loss", "l1", "psnr")} | {
-        k: int(getattr(m, k)) for k in ("overflow", "clipped", "num_alive", "slab")}
+        k: int(getattr(m, k)) for k in ("overflow", "clipped", "num_alive")}
 
 
 def snapshot(state) -> dict:
@@ -3166,7 +3166,7 @@ def check_par_result(got: dict, ref: dict, label: str) -> None:
             rel = abs(m[k] - r[k]) / max(abs(r[k]), 1e-30)
             worst[k] = max(worst.get(k, 0.0), rel)
             require(rel <= tol, f"[{label}] {k} {m[k]} vs single-card {r[k]} (rel {rel:.2e})")
-        for k in ("overflow", "clipped", "num_alive", "slab"):
+        for k in ("overflow", "clipped", "num_alive"):
             require(m[k] == r[k], f"[{label}] {k} {m[k]} vs single-card {r[k]}")
     s, a = got["state"], ref["state"]
     for k in ("xyz", "opacity"):

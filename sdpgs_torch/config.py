@@ -27,7 +27,9 @@ class RasterizeConfig:
     package's Pallas kernels (rank-kernel slots and layouts, windowed and
     gather-based payload backward, Pallas chunk and tiles per grid step,
     bf16 backward, kernel routing) and are kept only for file
-    compatibility: the port ignores them. Overflows are counted and
+    compatibility: the port ignores them. ``grad_window_slack`` is as inert
+    as the rest: the port's backward has no gradient window, and its
+    capacity ladder grows K and D only. Overflows are counted and
     reported, never silent.
     """
 
@@ -160,8 +162,8 @@ class TrainConfig:
     raster: RasterizeConfig = field(default_factory=RasterizeConfig)
     seed: int = 0                   # reference seeds all RNGs to 0 (general_utils.py:140-142)
     views_per_batch: int = 1        # data-parallel view batch (reference: 1)
-    # Device mesh of the JAX package's training driver (data x gauss x
-    # tile); kept for file compatibility, not read by the port yet.
+    # Device mesh (data x gauss x tile): the Trainer trains on a mesh of
+    # that many torch.distributed ranks when their product exceeds 1.
     mesh_data: int = 1              # device-mesh data (view) axis size
     mesh_gauss: int = 1             # device-mesh Gaussian-shard axis size
     mesh_tile: int = 1              # device-mesh rasterizer tile axis size

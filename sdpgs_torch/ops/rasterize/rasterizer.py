@@ -35,8 +35,6 @@ class RenderOutput(NamedTuple):
     visibility: torch.Tensor  # [P] bool, radii > 0
     overflow: torch.Tensor    # telemetry: entries dropped by per-tile cap K
     clipped: torch.Tensor     # telemetry: tile slots dropped by per-Gaussian cap D
-    slab: torch.Tensor        # telemetry of the JAX package's windowed
-                              # payload backward; always 0 in the port
     tile_counts: torch.Tensor  # [T] int32 entries listed per tile: K3's and K5's work
     tile_totals: torch.Tensor  # [T] int32 entries per tile before the K cap
 
@@ -63,6 +61,27 @@ def make_payload(prep: Preprocessed, opacity, color, feature) -> torch.Tensor:
         prep.depth[:, None],                      # 9
         feature,                                  # 10:13
     ], dim=-1).to(torch.float32)).contiguous()
+
+
+def render_output(vals, final_t, bg, prep: Preprocessed, overflow, clipped, tile_counts,
+                  tile_totals) -> RenderOutput:
+    """The outputs of one view from its composited ``vals`` [H, W, 7] (rgb,
+    expected depth, feature), final transmittance ``final_t`` [H, W] and
+    background ``bg`` [3], the preprocess's radii and the binning telemetry."""
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=vals.device)
+    radii = prep.radius.detach()
+    return RenderOutput(
+        color=vals[..., :3] + final_t[..., None] * bg[None, None, :],
+        depth=vals[..., 3],
+        alpha=1.0 - final_t,
+        feature=vals[..., 4:7],
+        radii=radii,
+        visibility=radii > 0.0,
+        overflow=overflow,
+        clipped=clipped,
+        tile_counts=tile_counts,
+        tile_totals=tile_totals,
+    )
 
 
 def rasterize_tiles(
@@ -127,7 +146,6 @@ def rasterize(
     dev = default_device(device)
     _check_device(dev, xyz, opacity, color, feature, alive)
     cam = cam.to(dev)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
     out, bins, prep = rasterize_tiles(
         xyz, cov3d, opacity, color, feature, alive, cam, cfg,
         means2d_offset=means2d_offset, feature_weight=feature_weight,
@@ -137,19 +155,8 @@ def rasterize(
     H, W = cam.height, cam.width
     vals = assemble_image(out.values, tiles_x, tiles_y, cfg.tile, H, W)
     final_t = assemble_image(out.final_t[..., None], tiles_x, tiles_y, cfg.tile, H, W)[..., 0]
-    return RenderOutput(
-        color=vals[..., :3] + final_t[..., None] * bg[None, None, :],
-        depth=vals[..., 3],
-        alpha=1.0 - final_t,
-        feature=vals[..., 4:7],
-        radii=prep.radius.detach(),
-        visibility=prep.radius.detach() > 0.0,
-        overflow=bins.overflow,
-        clipped=bins.clipped,
-        slab=torch.zeros((), dtype=torch.int32, device=dev),
-        tile_counts=bins.tile_counts,
-        tile_totals=bins.tile_totals,
-    )
+    return render_output(vals, final_t, bg, prep, bins.overflow, bins.clipped, bins.tile_counts,
+                         bins.tile_totals)
 
 
 @torch.no_grad()
@@ -161,7 +168,6 @@ def rasterize_naive(xyz, cov3d, opacity, color, feature, alive, cam: Camera, bg,
     dev = default_device(device)
     _check_device(dev, xyz, opacity, color, feature, alive)
     cam = cam.to(dev)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
     P = xyz.shape[0]
     prep = preprocess(xyz, cov3d, cam, alive, near=cfg.near, low_pass=cfg.low_pass)
     key = torch.where(prep.valid, prep.depth, torch.full_like(prep.depth, float("inf")))
@@ -182,19 +188,7 @@ def rasterize_naive(xyz, cov3d, opacity, color, feature, alive, cam: Camera, bg,
         _pad_row(opacity * prep.valid)[idx], _pad_row(values)[idx],
         xs.reshape(1, -1), ys.reshape(1, -1), cfg, rect=_pad_row(rect)[idx],
     )
-    vals = out.values.reshape(H, W, -1)
-    final_t = out.final_t.reshape(H, W)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    return RenderOutput(
-        color=vals[..., :3] + final_t[..., None] * bg[None, None, :],
-        depth=vals[..., 3],
-        alpha=1.0 - final_t,
-        feature=vals[..., 4:7],
-        radii=prep.radius,
-        visibility=prep.radius > 0.0,
-        overflow=zero,
-        clipped=zero,
-        slab=zero,
-        tile_counts=torch.zeros((0,), dtype=torch.int32, device=dev),   # no table
-        tile_totals=torch.zeros((0,), dtype=torch.int32, device=dev),
-    )
+    no_table = torch.zeros((0,), dtype=torch.int32, device=dev)
+    return render_output(out.values.reshape(H, W, -1), out.final_t.reshape(H, W), bg, prep,
+                         zero, zero, no_table, no_table)

@@ -25,7 +25,4 @@ from sdpgs_torch.parallel.sharding import (  # noqa: F401
     shard_train_state,
     state_shardings,
 )
-from sdpgs_torch.parallel.tile_shard import (  # noqa: F401
-    rasterize_tile_sharded,
-    render_tile_sharded,
-)
+from sdpgs_torch.parallel.tile_shard import rasterize_tile_sharded  # noqa: F401

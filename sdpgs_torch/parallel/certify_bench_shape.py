@@ -9,7 +9,7 @@ alive, 504x378, K 1,024, two views) through
   * ``steps`` sharded train steps on each mesh against the same steps on
     one card: loss and PSNR within 1e-3 relative (the tile sum and the data
     mean reorder the float accumulations), telemetry (overflow, clipped,
-    slab, alive) exactly, and the ``gauss`` split of the moments and
+    alive) exactly, and the ``gauss`` split of the moments and
     statistics asserted after every step;
   * one densify and prune event (with proximity: the k-NN of the gathered
     state) at bench capacity, the split asserted again after the slot
@@ -123,8 +123,7 @@ def _leg(g, batch, protos, cfg, steps: int, dev, mesh_axes=None) -> tuple:
         if mesh is not None:
             assert_state_sharded(state, shardings, f"sharded step {i}")
         hist.append({"loss": float(m.loss), "psnr": float(m.psnr), "overflow": int(m.overflow),
-                     "clipped": int(m.clipped), "slab": int(m.slab),
-                     "alive": int(m.num_alive)})
+                     "clipped": int(m.clipped), "alive": int(m.num_alive)})
     if mesh is not None:
         state = _densify(gather_train_state(state, mesh), cfg, dev)
         state = shard_train_state(state, mesh)
@@ -168,8 +167,8 @@ def certify_bench_shape(meshes=((2, 2, 1), (1, 2, 2)), steps: int = 3,
         # telemetry must agree exactly; trajectories loosely (tile sum and
         # data mean reorder the accumulations)
         for a, b in zip(hist_m, hist_s):
-            assert (a["overflow"], a["clipped"], a["slab"], a["alive"]) == (
-                b["overflow"], b["clipped"], b["slab"], b["alive"]), (axes, a, b)
+            assert (a["overflow"], a["clipped"], a["alive"]) == (
+                b["overflow"], b["clipped"], b["alive"]), (axes, a, b)
         np.testing.assert_allclose(
             [h["loss"] for h in hist_m], [h["loss"] for h in hist_s], rtol=LOSS_RTOL,
             err_msg=f"{axes}: bench-shape sharded trajectory diverged from one card")

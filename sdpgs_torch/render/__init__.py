@@ -54,11 +54,14 @@ def render(
     means2d_offset: Optional[torch.Tensor] = None,
     confidence: Optional[torch.Tensor] = None,
     device=None,
+    tile_mesh=None,
 ) -> RenderOutput:
     """Render one view: fused preprocess + SH colour, the degree-0
     normalized language feature, the extended rasterize. Runs on ``device``
     (``cuda`` unless the caller asks for another), where ``g`` must live;
-    ``cam`` may live on the host."""
+    ``cam`` may live on the host. On a ``tile_mesh`` (a ``parallel.Mesh``)
+    whose ``tile`` axis exceeds 1 every rank of the axis composites its
+    share of the tiles (``parallel.tile_shard.rasterize_tile_sharded``)."""
     with span("render", unit="view"):
         dev = _resolve(device, g)
         prep, color = _prep_color(cam, g, cfg, active_sh_degree, scaling_modifier)
@@ -66,6 +69,13 @@ def render(
             color = override_color
         feature = (override_language if override_language is not None
                    else g.language_feature_normalized())
+        if tile_mesh is not None and tile_mesh.shape["tile"] > 1:
+            from sdpgs_torch.parallel.tile_shard import rasterize_tile_sharded
+
+            return rasterize_tile_sharded(
+                g.xyz, g.get_opacity()[:, 0], color, feature, g.alive, cam, bg, cfg, tile_mesh,
+                prep, means2d_offset=means2d_offset,
+                feature_weight=confidence[:, 0] if confidence is not None else None)
         return rasterize(
             g.xyz, None, g.get_opacity()[:, 0], color, feature, g.alive, cam, bg, cfg,
             means2d_offset=means2d_offset,

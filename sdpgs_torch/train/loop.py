@@ -107,7 +107,6 @@ class Trainer:
     # one card unless __init__ forms a mesh; rank 0 prints and writes
     mesh = None
     is_main = True
-    MAX_GRAD_WINDOW_SLACK = 2.0
 
     def __init__(self, cfg: TrainConfig, scene=None, mono_depth_fn=None, device=None):
         n_mesh = cfg.mesh_data * cfg.mesh_gauss * cfg.mesh_tile
@@ -329,21 +328,6 @@ class Trainer:
         self._set_raster(new, f"binning overflow={overflow}: per-tile cap K={r.max_per_tile} "
                               f"-> {new.max_per_tile}")
 
-    def _maybe_grow_slab(self, slab: int) -> None:
-        """Gradient-window slab drops grow ``grad_window_slack`` alone,
-        geometrically up to a ceiling. The port's backward has no slab (its
-        count is always 0), so this runs only for a state carried across
-        from the JAX package."""
-        r = self.cfg.raster
-        if r.grad_window_slack >= self.MAX_GRAD_WINDOW_SLACK:
-            print(f"grad-window slab drops={slab}: slack at ceiling "
-                  f"{r.grad_window_slack:.2f}; gradients of excess rows dropped", flush=True)
-            return
-        new = dataclasses.replace(r, grad_window_slack=min(self.MAX_GRAD_WINDOW_SLACK,
-                                                           r.grad_window_slack * 1.3))
-        self._set_raster(new, f"grad-window slab drops={slab}: slack "
-                              f"{r.grad_window_slack:.2f} -> {new.grad_window_slack:.2f}")
-
     def _maybe_grow_tiles_per_gaussian(self, clipped: int) -> None:
         """Clipped rects (a splat over more than D tiles lost its tail
         tiles): double D up to a ceiling."""
@@ -365,16 +349,15 @@ class Trainer:
         grow the capacities the drops call for, and reset what was read.
         Returns (overflow, clipped, the largest per-tile total)."""
         s = self.state
-        seen = torch.stack([s.max_overflow, s.max_clipped, s.max_slab, s.raster_tile_max,
-                            s.raster_entries])
+        seen = torch.stack([s.max_overflow, s.max_clipped, s.raster_tile_max, s.raster_entries])
         renders, self._renders = self._renders, 0
         if self.mesh is not None:
             from sdpgs_torch.parallel import comm
 
-            comm.all_max(seen[:4], dist.group.WORLD)
-            comm.all_sum(seen[4:], dist.group.WORLD)
+            comm.all_max(seen[:3], dist.group.WORLD)
+            comm.all_sum(seen[3:], dist.group.WORLD)
             renders *= dist.get_world_size()
-        mo, mc, ms, tile_max, entries = (int(v) for v in seen.tolist())
+        mo, mc, tile_max, entries = (int(v) for v in seen.tolist())
         s.raster_entries.zero_()
         s.raster_tile_max.zero_()
         # empty spans, so that the log point keeps its idle
@@ -386,11 +369,9 @@ class Trainer:
             self._maybe_grow_max_per_tile(mo)
         if mc > 0:
             self._maybe_grow_tiles_per_gaussian(mc)
-        if ms > 0:
-            self._maybe_grow_slab(ms)
-        if mo > 0 or mc > 0 or ms > 0:
-            for k in ("max_overflow", "max_clipped", "max_slab"):
-                getattr(s, k).zero_()
+        if mo > 0 or mc > 0:
+            s.max_overflow.zero_()
+            s.max_clipped.zero_()
         return mo, mc, tile_max
 
     def restore(self, checkpoint_dir, step: int) -> None:

@@ -23,7 +23,7 @@ from sdpgs_torch.opt.adam import TRAINABLE, GaussianAdamState, adam_init
 from sdpgs_torch.opt.densify import DensifyStats, init_stats
 
 STAT_FIELDS = ("xyz_gradient_accum", "denom", "max_radii2d")
-TELEMETRY = ("max_overflow", "max_clipped", "max_slab")
+TELEMETRY = ("max_overflow", "max_clipped")
 # The raster work since the host last looked; a checkpoint without them
 # loads with zeros.
 RASTER_COUNTERS = ("raster_entries", "raster_tile_max")
@@ -41,7 +41,6 @@ class TrainState:
     # no step's overflow or clipping slips between log points.
     max_overflow: torch.Tensor
     max_clipped: torch.Tensor
-    max_slab: torch.Tensor
     # The (tile, Gaussian) entries the renders listed since the host last
     # looked, summed (0-d int64), and the largest uncapped per-tile total
     # among them (0-d int32): the raster work K3 and K5 did, and what K needs.
@@ -67,7 +66,7 @@ class TrainState:
         return cls(gaussians=gaussians, opt_state=adam_init(gaussians),
                    stats=init_stats(gaussians.capacity, device=dev), step=0,
                    generator=torch.Generator(device=dev).manual_seed(seed),
-                   max_overflow=zero(), max_clipped=zero(), max_slab=zero(),
+                   max_overflow=zero(), max_clipped=zero(),
                    raster_entries=zero(torch.int64), raster_tile_max=zero())
 
     @classmethod
@@ -77,10 +76,12 @@ class TrainState:
         under ``gaussians`` (field -> array), ``mu`` and ``nu`` (field ->
         array), ``stats`` (``xyz_gradient_accum``, ``denom``,
         ``max_radii2d``), and the scalars ``adam_step``, ``step``,
-        ``max_overflow``, ``max_clipped``, ``max_slab``, and optionally
+        ``max_overflow``, ``max_clipped``, and optionally
         ``raster_entries``, ``raster_tile_max`` (0 where absent, as in the
-        JAX package's state and older checkpoints). The JAX random key is
-        not carried: the generator is seeded with ``seed``."""
+        JAX package's state and older checkpoints). A ``max_slab`` (the
+        JAX package's state, or a checkpoint that still wrote it) is
+        ignored. The JAX random key is not carried: the generator is seeded
+        with ``seed``."""
         dev = default_device(device)
         g = Gaussians.from_numpy(arrays["gaussians"], max_sh_degree=max_sh_degree, device=dev)
         state = cls.create(g, seed=seed, device=dev)

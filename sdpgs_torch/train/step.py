@@ -73,7 +73,6 @@ class StepMetrics(NamedTuple):
     overflow: torch.Tensor   # entries dropped by the per-tile K cap
     clipped: torch.Tensor    # tile slots dropped by the per-Gaussian D cap
     num_alive: torch.Tensor
-    slab: torch.Tensor       # always 0 in the port (JAX's windowed backward)
 
 
 class ViewBatch(NamedTuple):
@@ -176,20 +175,6 @@ def _pseudo_losses(out, pseudo: PseudoInputs, protos, cfg: TrainConfig, step: in
     return total + 0.5 * loss_scale * opt.depth_pseudo_weight * torch.nan_to_num(reproj)
 
 
-def _render(cam, g, cfg: TrainConfig, bg, sh_degree: int, device, offset=None,
-            tile_mesh=None):
-    """One differentiable render, tile-sharded over ``tile_mesh`` when given
-    (JAX step.py:_render_view)."""
-    conf = g.confidence if cfg.pipeline.use_confidence else None
-    if tile_mesh is not None:
-        from sdpgs_torch.parallel.tile_shard import render_tile_sharded
-
-        return render_tile_sharded(cam, g, cfg.raster, bg, sh_degree, tile_mesh,
-                                   means2d_offset=offset, confidence=conf)
-    return render(cam, g, cfg.raster, bg, sh_degree, means2d_offset=offset, confidence=conf,
-                  device=device)
-
-
 def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: TrainConfig,
                    sh_degree: int, device: torch.device, pseudo: Optional[PseudoInputs] = None,
                    mono_depth_fn: Optional[Callable] = None, tile_mesh=None,
@@ -202,13 +187,14 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
     that holds it."""
     with span("step.forward"):
         g = state.gaussians
+        conf = g.confidence if cfg.pipeline.use_confidence else None
         params = [getattr(g, k) for k in TRAINABLE]
         offsets = [torch.zeros((g.capacity, 2), dtype=torch.float32, device=device,
                                requires_grad=True) for _ in batch.cameras]
         losses, l1s, images, outs = [], [], [], []
         for v, cam in enumerate(batch.cameras):
-            out = _render(cam, g, cfg, bg, sh_degree, device, offset=offsets[v],
-                          tile_mesh=tile_mesh)
+            out = render(cam, g, cfg.raster, bg, sh_degree, means2d_offset=offsets[v],
+                         confidence=conf, device=device, tile_mesh=tile_mesh)
             loss_v, (ll1, image) = _view_losses_from_out(
                 out, batch.image[v], batch.depth_mono[v], batch.feature[v], batch.seg_map[v],
                 prototypes, cfg, state.step)
@@ -221,7 +207,8 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
         if pseudo is not None:
             # no offset: the densification statistics come from the train
             # views only (train.py:218-221)
-            out_ps = _render(pseudo.camera, g, cfg, bg, sh_degree, device, tile_mesh=tile_mesh)
+            out_ps = render(pseudo.camera, g, cfg.raster, bg, sh_degree, confidence=conf,
+                            device=device, tile_mesh=tile_mesh)
             train_feat = _train_feature(outs, pseudo.train_view_idx, cfg, data_mesh)
             loss = loss + _pseudo_losses(out_ps, pseudo, prototypes, cfg, state.step,
                                          mono_depth_fn, train_feature=train_feat)
@@ -235,15 +222,21 @@ def loss_and_grads(state: TrainState, batch: ViewBatch, prototypes, bg, cfg: Tra
                      pseudo_out=out_ps)
 
 
-def _count_raster_work(state: TrainState, grads: Gradients) -> None:
-    """Fold every render of the step (the pseudo view's too) into the
-    state's running sum of listed entries and running max of the per-tile
-    totals: four device operations a render, no synchronisation, and none
-    on a render outside a train step."""
+def _close_step(state: TrainState, metrics: StepMetrics, grads: Gradients) -> tuple:
+    """The bookkeeping that ends every step, on one card or a mesh: advance
+    the iteration counter, fold the step's drops into the running maxima,
+    and every render of the step (the pseudo view's too) into the running
+    sum of listed entries and running max of the per-tile totals: four
+    device operations a render and no synchronisation. Returns
+    ``(state, metrics)``."""
+    state.step += 1
+    state.max_overflow = torch.maximum(state.max_overflow, metrics.overflow)
+    state.max_clipped = torch.maximum(state.max_clipped, metrics.clipped)
     rendered = grads.outs if grads.pseudo_out is None else grads.outs + [grads.pseudo_out]
     for o in rendered:
         state.raster_entries.add_(o.tile_counts.sum())
         torch.maximum(state.raster_tile_max, o.tile_totals.amax(), out=state.raster_tile_max)
+    return state, metrics
 
 
 def _train_feature(outs, idx: int, cfg: TrainConfig, data_mesh) -> torch.Tensor:
@@ -293,8 +286,6 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
             and (mesh.shape["data"] > 1 or mesh.shape["gauss"] > 1)):
         raise ValueError("a mesh with data or gauss above 1 needs out_shardings "
                          "(parallel.state_shardings)")
-    if tile_mesh is not None and tile_mesh.shape["tile"] == 1:
-        tile_mesh = None
 
     def step(state: TrainState, batch: ViewBatch, prototypes, bg, spatial_lr_scale,
              pseudo: Optional[PseudoInputs] = None, device=None):
@@ -333,14 +324,8 @@ def make_train_step(cfg: TrainConfig, sh_degree: int, with_pseudo: bool = False,
                 overflow=torch.stack([o.overflow for o in grads.outs]).amax(),
                 clipped=torch.stack([o.clipped for o in grads.outs]).amax(),
                 num_alive=g.alive.sum().to(torch.int32),
-                slab=torch.stack([o.slab for o in grads.outs]).amax(),
             )
-            state.step += 1
-            state.max_overflow = torch.maximum(state.max_overflow, metrics.overflow)
-            state.max_clipped = torch.maximum(state.max_clipped, metrics.clipped)
-            state.max_slab = torch.maximum(state.max_slab, metrics.slab)
-            _count_raster_work(state, grads)
-        return state, metrics
+            return _close_step(state, metrics, grads)
 
     return step
 
@@ -372,7 +357,7 @@ def _mesh_update(state: TrainState, batch: ViewBatch, grads: Gradients, cfg: Tra
         torch.stack([grads.loss, grads.l1.sum(), psnrs.sum()])]), data)
     flat[:n_grad].div_(n_data)
     telemetry = torch.stack([torch.stack([getattr(o, k) for o in grads.outs]).amax()
-                             for k in ("overflow", "clipped", "slab")])
+                             for k in ("overflow", "clipped")])
     maxed = comm.all_max(torch.cat([inc.max_radii2d.double(), telemetry.double()]), data)
     P = g.capacity
     full, o = {}, 0
@@ -391,16 +376,11 @@ def _mesh_update(state: TrainState, batch: ViewBatch, grads: Gradients, cfg: Tra
     _gather_param_rows(g, lo, hi, mesh.group("gauss"))
     state.stats = apply_increments(state.stats, DensifyStats(
         *(getattr(inc, f)[lo:hi] for f in ("xyz_gradient_accum", "denom", "max_radii2d"))))
-    overflow, clipped, slab = (maxed[P + i].to(torch.int32) for i in range(3))
+    overflow, clipped = (maxed[P + i].to(torch.int32) for i in range(2))
     metrics = StepMetrics(loss=loss / n_data, l1=l1_sum / V, psnr=psnr_sum / V,
                           overflow=overflow, clipped=clipped,
-                          num_alive=g.alive.sum().to(torch.int32), slab=slab)
-    state.step += 1
-    state.max_overflow = torch.maximum(state.max_overflow, metrics.overflow)
-    state.max_clipped = torch.maximum(state.max_clipped, metrics.clipped)
-    state.max_slab = torch.maximum(state.max_slab, metrics.slab)
-    _count_raster_work(state, grads)
-    return state, metrics
+                          num_alive=g.alive.sum().to(torch.int32))
+    return _close_step(state, metrics, grads)
 
 
 @torch.no_grad()

@@ -124,7 +124,7 @@ def jax_state_arrays(js) -> dict:
         adam_step=int(js.opt_state.step),
         stats={k: n(getattr(js.stats, k)) for k in STAT_FIELDS},
         step=int(js.step), max_overflow=int(js.max_overflow),
-        max_clipped=int(js.max_clipped), max_slab=int(js.max_slab))
+        max_clipped=int(js.max_clipped))
 
 
 def _filled_jax_state(rng):
@@ -137,8 +137,7 @@ def _filled_jax_state(rng):
                                           step=jnp.int32(9)),
         stats=jdensify.DensifyStats(*(jnp.asarray(rng.uniform(size=64).astype(np.float32))
                                       for _ in STAT_FIELDS)),
-        step=jnp.int32(9), max_overflow=jnp.int32(4), max_clipped=jnp.int32(2),
-        max_slab=jnp.int32(0))
+        step=jnp.int32(9), max_overflow=jnp.int32(4), max_clipped=jnp.int32(2))
 
 
 def _assert_same_arrays(a, b):
@@ -146,7 +145,7 @@ def _assert_same_arrays(a, b):
         assert a[k].keys() == b[k].keys(), k
         for f in a[k]:
             np.testing.assert_array_equal(a[k][f], b[k][f], err_msg=f"{k}.{f}")
-    for k in ("adam_step", "step", "max_overflow", "max_clipped", "max_slab"):
+    for k in ("adam_step", "step", "max_overflow", "max_clipped"):
         assert a[k] == b[k], k
 
 
@@ -170,3 +169,21 @@ def test_checkpoint_round_trip(rng, tmp_path):
     _assert_same_arrays(back.to_numpy(), state.to_numpy())
     assert torch.equal(torch.rand(4, generator=back.generator),
                        torch.rand(4, generator=state.generator))
+
+
+@pytest.mark.parametrize("source", ["arrays", "checkpoint"])
+def test_max_slab_is_ignored_on_restore(rng, tmp_path, source):
+    """Arrays that carry the JAX package's ``max_slab`` (its state, or a
+    checkpoint written while the port still kept it) restore to the state
+    the same arrays give without it; ``to_numpy`` does not write it."""
+    arrays = jax_state_arrays(_filled_jax_state(rng))
+    state = TrainState.from_numpy(arrays, device="cpu")
+    old = dict(state.to_numpy(), max_slab=3)
+    if source == "arrays":
+        back = TrainState.from_numpy(old, device="cpu")
+    else:
+        torch.save(dict(state=old, max_sh_degree=state.gaussians.max_sh_degree,
+                        generator=state.generator.get_state()), tmp_path / "ckpt_9.pt")
+        back = restore_checkpoint(tmp_path, 9, state)
+    _assert_same_arrays(back.to_numpy(), arrays)
+    assert "max_slab" not in back.to_numpy()

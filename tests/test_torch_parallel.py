@@ -4,8 +4,9 @@ on the CPU, against sdpgs_tpu.
 One pool of 4 spawned ranks (``torch_ranks.RankPool``, one thread each)
 serves every case; the JAX side runs on conftest's 8 virtual CPU devices.
 
-- the tile-sharded render on a (data=1, gauss=1, tile=4) mesh: bit for bit
-  the port's whole render, and against JAX's ``render_tile_sharded`` on
+- the tile-sharded render (``render(..., tile_mesh=)``) on a (data=1,
+  gauss=1, tile=4) mesh: one ``render`` span a view, bit for bit the port's
+  whole render, and against JAX's ``render_tile_sharded`` on
   ``make_mesh(data=2, gauss=1, tile=4)`` within the tolerances the port's
   whole render is held to against JAX's (test_torch_render.py: 2e-5 for
   colour and alpha, 2e-4 for depth and feature; here one pixel of 3,072
@@ -148,6 +149,14 @@ def test_tile_sharded_render_matches_jax(render_case):
     assert float(np.asarray(ref.alpha).mean()) > 0.05
 
 
+def test_tile_sharded_render_records_one_render_span(render_case):
+    """The tile-sharded render goes through the one facade: one ``render``
+    span for the view on every tile rank, as the whole render records."""
+    _, _, ranks = render_case
+    for both in ranks:
+        assert both["sharded"]["spans"] == both["whole"]["spans"] == ["render"]
+
+
 def test_tile_sharded_gradients_match_jax(render_case):
     _, grads, ranks = render_case
     ranks = [both["sharded"] for both in ranks]
@@ -164,7 +173,7 @@ def assert_step_matches(got, ref_metrics, after):
     assert m["loss"] == pytest.approx(float(ref_metrics.loss), rel=1e-5)
     assert m["psnr"] == pytest.approx(float(ref_metrics.psnr), rel=1e-4)
     assert m["l1"] == pytest.approx(float(ref_metrics.l1), rel=1e-5)
-    for k in ("overflow", "clipped", "num_alive", "slab"):
+    for k in ("overflow", "clipped", "num_alive"):
         assert m[k] == int(getattr(ref_metrics, k)), k
     s = got["state"]
     for k in ("xyz", "opacity"):
@@ -177,7 +186,7 @@ def assert_step_matches(got, ref_metrics, after):
         assert rel_err(s["nu"][k], after["nu"][k]) <= 1e-4, k
     for k in STAT_FIELDS:
         assert rel_err(s["stats"][k], after["stats"][k]) <= 1e-4, k
-    for k in ("step", "adam_step", "max_overflow", "max_clipped", "max_slab"):
+    for k in ("step", "adam_step", "max_overflow", "max_clipped"):
         assert s[k] == after[k], k
 
 
@@ -210,7 +219,7 @@ def test_sharded_pseudo_step_matches_single(pool, step_data):
         m, r = got["metrics"], ref["metrics"]
         assert m["loss"] == pytest.approx(r["loss"], rel=1e-5)
         assert m["psnr"] == pytest.approx(r["psnr"], rel=1e-4)
-        for k in ("overflow", "clipped", "num_alive", "slab"):
+        for k in ("overflow", "clipped", "num_alive"):
             assert m[k] == r[k], k
         for k in TRAINABLE:
             np.testing.assert_allclose(got["state"]["gaussians"][k], ref["state"]["gaussians"][k],

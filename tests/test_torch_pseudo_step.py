@@ -224,7 +224,7 @@ def test_pseudo_step_matches_jax(scene, name):
 
     for k in ("loss", "l1", "psnr"):
         assert float(getattr(tm, k)) == pytest.approx(float(getattr(jm, k)), rel=1e-5), k
-    for k in ("overflow", "clipped", "num_alive", "slab"):
+    for k in ("overflow", "clipped", "num_alive"):
         assert int(getattr(tm, k)) == int(getattr(jm, k)), k
     assert float(grads.loss) == float(tm.loss)
     for k in TRAINABLE:
@@ -237,7 +237,7 @@ def test_pseudo_step_matches_jax(scene, name):
         assert rel_err(got["nu"][k], after["nu"][k]) <= nu_tol, k
     for k in STAT_FIELDS:
         assert rel_err(got["stats"][k], after["stats"][k]) <= 1e-4, k
-    for k in ("step", "adam_step", "max_overflow", "max_clipped", "max_slab"):
+    for k in ("step", "adam_step", "max_overflow", "max_clipped"):
         assert got[k] == after[k], k
 
 

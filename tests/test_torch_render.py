@@ -47,7 +47,7 @@ def assert_outputs_match(got, ref, expect_drops=None):
     np.testing.assert_allclose(got.alpha.numpy(), np.asarray(ref.alpha), atol=2e-5, rtol=0)
     np.testing.assert_allclose(got.depth.numpy(), np.asarray(ref.depth), atol=2e-4, rtol=0)
     np.testing.assert_allclose(got.feature.numpy(), np.asarray(ref.feature), atol=2e-4, rtol=0)
-    for name in ("radii", "visibility", "overflow", "clipped", "slab"):
+    for name in ("radii", "visibility", "overflow", "clipped"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)), err_msg=name)
     if expect_drops is not None:

@@ -118,7 +118,7 @@ def test_one_step_matches_jax(scene, V, deg):
 
     for k in ("loss", "l1", "psnr"):
         assert float(getattr(tm, k)) == pytest.approx(float(getattr(jm, k)), rel=1e-5), k
-    for k in ("overflow", "clipped", "num_alive", "slab"):
+    for k in ("overflow", "clipped", "num_alive"):
         assert int(getattr(tm, k)) == int(getattr(jm, k)), k
     assert float(grads.loss) == float(tm.loss)
     for k in TRAINABLE:
@@ -134,7 +134,7 @@ def test_one_step_matches_jax(scene, V, deg):
         assert rel_err(got["nu"][k], after["nu"][k]) <= 1e-4, k
     for k in STAT_FIELDS:
         assert rel_err(got["stats"][k], after["stats"][k]) <= 1e-4, k
-    for k in ("step", "adam_step", "max_overflow", "max_clipped", "max_slab"):
+    for k in ("step", "adam_step", "max_overflow", "max_clipped"):
         assert got[k] == after[k], k
 
 

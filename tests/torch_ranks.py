@@ -122,14 +122,15 @@ def mesh_shapes(specs):
 def tile_render(arrays, cam_kw, raster_kw, bg, target, axes):
     """The tile-sharded and the whole render of one view, each with the
     gradients of sum((color - target)^2) + 1e-3 sum(depth) with respect to
-    every trainable field."""
+    every trainable field, and the names of the spans each recorded."""
     import torch
 
     from sdpgs_torch.core.camera import Camera
     from sdpgs_torch.core.gaussians import Gaussians
     from sdpgs_torch.opt.adam import TRAINABLE
-    from sdpgs_torch.parallel import make_mesh, render_tile_sharded
+    from sdpgs_torch.parallel import make_mesh
     from sdpgs_torch.render import render
+    from sdpgs_torch.utils.profiling import recording, spans
 
     mesh = make_mesh(*axes)
     g = Gaussians.from_numpy(arrays, device="cpu")
@@ -139,14 +140,16 @@ def tile_render(arrays, cam_kw, raster_kw, bg, target, axes):
     bg = torch.from_numpy(bg)
     n = lambda t: t.detach().numpy()  # noqa: E731
     res = {}
-    for name, out in (("sharded", render_tile_sharded(cam, g, cfg, bg, 1, mesh)),
-                      ("whole", render(cam, g, cfg, bg, 1, device="cpu"))):
+    for name, tile_mesh in (("sharded", mesh), ("whole", None)):
+        with recording():
+            out = render(cam, g, cfg, bg, 1, device="cpu", tile_mesh=tile_mesh)
+        span_names = [s.name for s in spans()]
         loss = ((out.color - torch.from_numpy(target)) ** 2).sum() + out.depth.sum() * 1e-3
         grads = torch.autograd.grad(loss, [getattr(g, k) for k in TRAINABLE])
         res[name] = dict(color=n(out.color), depth=n(out.depth), alpha=n(out.alpha),
                          feature=n(out.feature), radii=n(out.radii),
                          overflow=int(out.overflow), clipped=int(out.clipped),
-                         grads={k: n(d) for k, d in zip(TRAINABLE, grads)})
+                         grads={k: n(d) for k, d in zip(TRAINABLE, grads)}, spans=span_names)
     return res
 
 
@@ -166,7 +169,7 @@ def _batch(data, V):
 
 def _metrics(m):
     return {k: float(getattr(m, k)) for k in ("loss", "l1", "psnr")} | {
-        k: int(getattr(m, k)) for k in ("overflow", "clipped", "num_alive", "slab")}
+        k: int(getattr(m, k)) for k in ("overflow", "clipped", "num_alive")}
 
 
 def sharded_step(state_arrays, data, raster_kw, axes, deg, pseudo=None):
