@@ -175,7 +175,14 @@ K4_TOL = 1e-4                 # K4 vs autograd: |diff| <= 1e-4 x the field's max
 K5_TOL = 1e-3                 # K5 vs autograd: the sum order and T recovered by
                               # division; no payload row beyond it
 PLAIN_TILES_PER_PASS = 16     # K5's plain version: tiles per autograd pass
-K4_BYTES_ROWS = 11 + 11 + 11  # K4 reads geometry and cotangent rows, writes d geometry
+# K1 reads xyz 3, scale 3, quat 4, SH 48, alive, opacity, feature 3, offset 2 floats a
+# slot and writes the 13-float payload row, mean2d 2, depth, radius and a valid byte;
+# K4 reads the same fields but opacity, feature and offset, and the 13-float payload
+# gradient, and writes 64 gradient floats (10 geometry, 48 SH, opacity, feature 3,
+# offset 2). At SH degree 3.
+K1_BYTES_PER_SLOT = (65 + 17) * 4 + 1
+K4_BYTES_PER_SLOT = (72 + 64) * 4
+PREPROCESS_SLOTS = (1 << 17, 1 << 22)   # K1 and K4 timed at the LLFF and r4 capacities
 TRAIN_STEPS = 30              # full-width train steps, cycling the train cameras
 TRAIN_WARMUP = 5              # steps left out of the step-time median
 TRAIN_CAMS = 3
@@ -395,7 +402,6 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
     the same inputs (K1 -> K2 on K1's output -> K3 on K2's table). Returns
     the inputs and errors the timing phase needs."""
     from sdpgs_torch.ops.rasterize import binning, preprocess_cuda
-    from sdpgs_torch.ops.rasterize.rasterizer import make_payload
 
     tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, cfg.tile)
     T = tiles_x * tiles_y
@@ -403,29 +409,34 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
     print(f"[{label}] tile {cfg.tile} ({T} tiles), K {K}, D {D}")
     with torch.no_grad():
         # -- 4. K1 vs plain ------------------------------------------------
-        geoT, shT = preprocess_cuda.pack_rows(
-            g.xyz, g.get_scaling(), g.get_rotation(), g.get_features(), g.alive, SH_DEGREE)
-        cam_vec = preprocess_cuda._cam_vec(cam)
-        k1_args = (geoT, shT, cam_vec, SH_DEGREE, WIDTH, HEIGHT, cfg.near, cfg.low_pass)
-        out_k = preprocess_cuda.preprocess_rows(*k1_args)
-        out_p = preprocess_cuda.preprocess_rows_plain(*k1_args)
+        k1_args = payload_inputs(g, cam)
+        pay_k = preprocess_cuda.preprocess_payload(*k1_args, near=cfg.near,
+                                                   low_pass=cfg.low_pass)
+        pay_p = preprocess_cuda.preprocess_payload_plain(*k1_args, near=cfg.near,
+                                                         low_pass=cfg.low_pass)
         torch.cuda.synchronize()
-        valid_bad = int((out_k[0] != out_p[0]).sum())
-        radius_bad = int((out_k[7] != out_p[7]).sum())
-        float_rows = [1, 2, 3, 4, 5, 6, 8, 9, 10]
-        close = torch.isclose(out_k[float_rows], out_p[float_rows], rtol=1e-5, atol=1e-5,
-                              equal_nan=True)
-        float_bad = int((~close).sum())
-        live = out_p[0] > 0
-        k1_err = float((out_k[float_rows][:, live] - out_p[float_rows][:, live]).abs().max())
+        valid_bad = int((pay_k.screen.valid != pay_p.screen.valid).sum())
+        radius_bad = int((pay_k.screen.radius != pay_p.screen.radius).sum())
+        P = g.capacity
+        floats = ((pay_k.rows, pay_p.rows), (pay_k.screen.mean2d, pay_p.screen.mean2d),
+                  (pay_k.screen.depth, pay_p.screen.depth))
+        float_bad = sum(int((~torch.isclose(a, b, rtol=1e-5, atol=1e-5, equal_nan=True)).sum())
+                        for a, b in floats)
+        live = pay_p.screen.valid
+        k1_err = float((pay_k.rows[:P][live] - pay_p.rows[:P][live]).abs().max())
         n_visible = int(live.sum())
+        record = (torch.equal(pay_k.screen.mean2d, pay_k.rows[:P, 0:2])
+                  and torch.equal(pay_k.screen.depth, pay_k.rows[:P, 9])
+                  and not bool(pay_k.rows[P].any()))
         print(f"  K1 preprocess: valid mismatches {valid_bad}, radius mismatches "
-              f"{radius_bad}, float rows outside rtol/atol 1e-5: {float_bad}, "
-              f"max |diff| over {n_visible} visible {k1_err:.3e}")
-        require(valid_bad == 0 and radius_bad == 0 and float_bad == 0, f"[{label}] K1 disagrees")
+              f"{radius_bad}, payload and record floats outside rtol/atol 1e-5: {float_bad}, "
+              f"max |diff| over {n_visible} visible {k1_err:.3e}; record = payload columns "
+              f"and zero sentinel {record}")
+        require(valid_bad == 0 and radius_bad == 0 and float_bad == 0 and record,
+                f"[{label}] K1 disagrees")
 
-        # -- 5. K2 vs plain on the same Preprocessed ----------------------
-        prep, color = preprocess_cuda.split_rows(out_k)
+        # -- 5. K2 vs plain on the same binning record --------------------
+        prep = pay_k.screen
         k2_args = (*binning.sort_rects(prep, WIDTH, HEIGHT, cfg), T, tiles_x, K, D)
         k2 = k2_versus_plain(k2_args, label)
         bins = binning.bin_gaussians(prep, WIDTH, HEIGHT, cfg)
@@ -437,8 +448,7 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
                 f"[{label}] K2 disagrees through bin_gaussians")
 
         # -- 6. K3 vs plain on the same table and payload -----------------
-        payload = make_payload(prep, g.get_opacity()[:, 0], color,
-                               g.language_feature_normalized())
+        payload = pay_k.rows
         k3_args = (payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
                    g.capacity)
         k3_err, pairs = k3_versus_plain(k3_args, bins.rects, label)
@@ -449,7 +459,7 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
         entries, rows_read = listed.numel(), torch.unique(listed).numel()
 
     bwd = check_backward_kernels(g, label, k1_args, k3_args, bins.rects)
-    return dict(k1_args=k1_args, k2_args=k2_args, k3_args=k3_args, k1_err=k1_err,
+    return dict(k1_args=k1_args, screen=pay_k.screen, k2_args=k2_args, k3_args=k3_args, k1_err=k1_err,
                 k2_err=k2["err"], k3_err=k3_err, pairs=pairs, payload_numel=payload.numel(),
                 row_bytes=payload.shape[1] * 4, entries=entries, rows_read=rows_read,
                 n_valid=int(k2_args[2]), T=T, K=K, overflow=k2["overflow"], rects=bins.rects,
@@ -457,10 +467,17 @@ def check_kernels(g, cam, cfg, label: str) -> dict:
 
 
 def main_prep(main_check: dict):
-    """The main scene's Preprocessed, from K1 on the main check's inputs."""
-    from sdpgs_torch.ops.rasterize import preprocess_cuda
+    """The main scene's binning record, from K1 on the main check's inputs."""
+    return main_check["screen"]
 
-    return preprocess_cuda.split_rows(preprocess_cuda.preprocess_rows(*main_check["k1_args"]))[0]
+
+def payload_inputs(g, cam) -> tuple:
+    """K1's inputs as ``render`` hands them over: the Gaussians' own fields,
+    the activated opacity, the normalized feature, the camera, the degree."""
+    return (g.xyz.detach(), g.get_scaling().detach(), g.get_rotation().detach(),
+            g.features_dc.detach(), g.features_rest.detach(), g.alive,
+            g.get_opacity()[:, 0].detach(), g.language_feature_normalized().detach(), cam,
+            SH_DEGREE)
 
 
 def k2_versus_plain(k2_args, label: str) -> dict:
@@ -800,31 +817,47 @@ def check_clamped_alpha(k3_args, rects, cfg) -> None:
 def check_backward_kernels(g, label: str, k1_args, k3_args, rects) -> dict:
     """K4 and K5 against their plain versions (autograd) on the card, on
     K1's and K3's inputs with seeded random cotangents."""
-    from sdpgs_torch.ops.rasterize import preprocess_cuda
+    from sdpgs_torch.ops.rasterize import composite_cuda, preprocess_cuda
 
     dev = g.xyz.device
     gen = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
-        # -- K4 vs plain: cotangents on the alive slots ---------------------
-        geoT = k1_args[0]
-        P = geoT.shape[1]
-        ct = torch.randn((preprocess_cuda.NOUT, P), generator=gen, device=dev) * g.alive
+        # -- K4 vs plain: payload gradients on the alive slots -------------
+        fields, cam = k1_args[:6], k1_args[8]
+        P = fields[0].shape[0]
+        d_rows = torch.randn((P + 1, composite_cuda.NPAY), generator=gen, device=dev)
+        d_rows[:P] *= g.alive[:, None]
+        d_rows[P] = 0.0
         masks = torch.empty(P, dtype=torch.int32, device=dev)
-        dgeo_k, dsh_k = preprocess_cuda.preprocess_rows_bwd(*k1_args[:3], ct, *k1_args[3:],
-                                                            masks=masks)
-        dgeo_p, dsh_p = preprocess_cuda.preprocess_vjp_plain(*k1_args[:3], ct, *k1_args[3:])
-        masks_p = preprocess_cuda.row_masks_plain(*k1_args)
+        k4_args = (*fields, d_rows, preprocess_cuda._cam_vec(cam), SH_DEGREE, WIDTH, HEIGHT)
+        got = preprocess_cuda.preprocess_payload_bwd(*k4_args, masks=masks)._asdict()
+        ref = preprocess_cuda.preprocess_payload_vjp_plain(*fields, d_rows, cam,
+                                                           SH_DEGREE)._asdict()
+        ref = {k: v for k, v in ref.items() if v is not None}
+        features = torch.cat([fields[3], fields[4]], dim=1)
+        masks_p = preprocess_cuda.row_masks_plain(
+            *preprocess_cuda.pack_rows(*fields[:3], features, fields[5], SH_DEGREE),
+            preprocess_cuda._cam_vec(cam), SH_DEGREE, WIDTH, HEIGHT)
         torch.cuda.synchronize()
         mask_bad = int((masks != masks_p).sum())
-        # fields: x y z, sx sy sz, qw qx qy qz, and the SH block as one
-        rel_g, bad_g = field_errors(dgeo_k[:10], dgeo_p[:10], K4_TOL)
-        rel_s, bad_s = field_errors(dsh_k.reshape(1, -1), dsh_p.reshape(1, -1), K4_TOL)
-        k4_err = float(torch.maximum((dgeo_k - dgeo_p).abs().max(), (dsh_k - dsh_p).abs().max()))
+        # fields: x y z, sx sy sz, qw qx qy qz each, the SH block as one,
+        # opacity, feature
+        sh_k = torch.cat([got["features_dc"], got["features_rest"]], dim=1).reshape(1, -1)
+        sh_p = torch.cat([ref["features_dc"], ref["features_rest"]], dim=1).reshape(1, -1)
+        rel_g, bad_g = field_errors(torch.cat([got[k].T for k in ("xyz", "scale", "quat")]),
+                                    torch.cat([ref[k].T for k in ("xyz", "scale", "quat")]),
+                                    K4_TOL)
+        rel_s, bad_s = field_errors(sh_k, sh_p, K4_TOL)
+        rel_o, bad_o = field_errors(torch.cat([got["opacity"][None], got["feature"].T]),
+                                    torch.cat([ref["opacity"][None], ref["feature"].T]), K4_TOL)
+        k4_err = max(float((got[k] - ref[k]).abs().max()) for k in ref)
         print(f"  K4 preprocess bwd: mask disagreements {mask_bad} of {P}, elements beyond "
-              f"{K4_TOL:g} x field max {bad_g + bad_s}, max |diff| / field max per field "
-              f"{[f'{v:.1e}' for v in rel_g.tolist()]} sh {float(rel_s.max()):.1e}, "
-              f"max |diff| {k4_err:.3e}")
-        require(mask_bad == 0 and bad_g + bad_s == 0 and bool(torch.isfinite(dgeo_k).all()),
+              f"{K4_TOL:g} x field max {bad_g + bad_s + bad_o}, max |diff| / field max per "
+              f"field {[f'{v:.1e}' for v in rel_g.tolist()]} sh {float(rel_s.max()):.1e} "
+              f"opacity, feature {[f'{v:.1e}' for v in rel_o.tolist()]}, max |diff| "
+              f"{k4_err:.3e}")
+        require(mask_bad == 0 and bad_g + bad_s + bad_o == 0
+                and all(bool(torch.isfinite(got[k]).all()) for k in ref),
                 f"[{label}] K4 disagrees")
 
         # -- K5 vs plain: the payload gradient at random cotangents --------
@@ -840,7 +873,7 @@ def check_backward_kernels(g, label: str, k1_args, k3_args, rects) -> dict:
         require(bool(torch.isfinite(d_k).all()) and rows_bad == 0, f"[{label}] K5 disagrees")
         require(0 < contrib <= tested <= walked, f"[{label}] K5's pair counts are inconsistent")
         k5_repeats(k5_args, label)
-    return dict(k4_args=(*k1_args[:3], ct, *k1_args[3:]), k4_err=k4_err,
+    return dict(k4_args=k4_args, k4_err=k4_err,
                 k5_args=k5_args, k5_plain_args=(*k3_args, *k5_args[5:7]),
                 k5_err=k5_err, contrib=contrib, k3_tested=k3_tested)
 
@@ -966,6 +999,7 @@ def train_phase(rng, dev) -> dict:
     from sdpgs_torch import _kernels
     from sdpgs_torch.config import TrainConfig
     from sdpgs_torch.core.gaussians import Gaussians
+    from sdpgs_torch.train import step as step_lib
     from sdpgs_torch.train.state import TrainState
     from sdpgs_torch.train.step import make_train_step
 
@@ -978,13 +1012,23 @@ def train_phase(rng, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_counts()
     l1s, times, telemetry = [], [], set()
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batches[i % TRAIN_CAMS], protos, bg, 1.0, device=dev)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        l1s.append(float(m.l1))
-        telemetry.add((int(m.overflow), int(m.clipped), int(m.num_alive)))
+    real_render, renders = step_lib.render, []
+
+    def counted_render(*a, **kw):
+        renders.append(1)
+        return real_render(*a, **kw)
+
+    step_lib.render = counted_render
+    try:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i % TRAIN_CAMS], protos, bg, 1.0, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            l1s.append(float(m.l1))
+            telemetry.add((int(m.overflow), int(m.clipped), int(m.num_alive)))
+    finally:
+        step_lib.render = real_render
     launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated()
     first = statistics.mean(l1s[:TRAIN_CAMS])
@@ -1006,6 +1050,8 @@ def train_phase(rng, dev) -> dict:
                     + _kernels.PROBE_KERNELS),
             "K6, K7 or K8 ran on the plain train path")
     require(launches["adam"] == TRAIN_STEPS, "fused Adam did not launch once per train step")
+    require(launches["preprocess"] == launches["preprocess_bwd"] == len(renders),
+            f"K1 and K4 did not launch once per render ({len(renders)} renders)")
     require(not any(plain.values()), "a plain version ran on the train path")
     require(all(bool(torch.isfinite(p).all()) for p in state.gaussians.parameters()),
             "non-finite parameters after training")
@@ -3303,21 +3349,14 @@ def k5_shape_times(g, cam) -> dict:
 
     from sdpgs_torch.config import RasterizeConfig
     from sdpgs_torch.ops.rasterize import binning, composite_cuda, preprocess_cuda
-    from sdpgs_torch.ops.rasterize.rasterizer import make_payload
 
     takes_rects = "rects" in inspect.signature(composite_cuda.composite_gather_bwd).parameters
     gen = torch.Generator(device=g.xyz.device).manual_seed(5)
     out = {}
     with torch.no_grad():
-        geoT, shT = preprocess_cuda.pack_rows(
-            g.xyz, g.get_scaling(), g.get_rotation(), g.get_features(), g.alive, SH_DEGREE)
         base = RasterizeConfig()
-        rows = preprocess_cuda.preprocess_rows(geoT, shT, preprocess_cuda._cam_vec(cam),
-                                               SH_DEGREE, WIDTH, HEIGHT, base.near,
-                                               base.low_pass)
-        prep, color = preprocess_cuda.split_rows(rows)
-        payload = make_payload(prep, g.get_opacity()[:, 0], color,
-                               g.language_feature_normalized())
+        payload, prep = preprocess_cuda.preprocess_payload(
+            *payload_inputs(g, cam), near=base.near, low_pass=base.low_pass)
         for K, D in ((1024, 8), (LADDER_K, LADDER_D)):
             cfg = RasterizeConfig(max_per_tile=K, max_tiles_per_gaussian=D)
             tiles_x, tiles_y = binning.tile_grid(WIDTH, HEIGHT, cfg.tile)
@@ -3362,9 +3401,85 @@ def k1_k4_times(k1_args, k4_args) -> tuple:
     host waits out the device sleep inside the timed window)."""
     from sdpgs_torch.ops.rasterize import preprocess_cuda as pp
 
-    cam = k1_args[2].cpu()
-    return (cuda_ms(lambda: pp.preprocess_rows_fwd(*k1_args[:2], cam, *k1_args[3:])),
-            cuda_ms(lambda: pp.preprocess_rows_bwd(*k4_args[:2], cam, *k4_args[3:])))
+    cam = pp._cam_vec(k1_args[8])
+    fwd = (*k1_args[:8], cam, SH_DEGREE, WIDTH, HEIGHT)
+    bwd = (*k4_args[:7], cam, *k4_args[8:])
+    return (cuda_ms(lambda: pp.preprocess_payload_fwd(*fwd)),
+            cuda_ms(lambda: pp.preprocess_payload_bwd(*bwd)))
+
+
+def preprocess_times(dev) -> dict:
+    """K1 and K4 at PREPROCESS_SLOTS slots (SH 3, every slot alive, the
+    train step's screen offset) on a random cloud seen by the main scene's
+    first camera: the median time of each beside its bytes bound, and the
+    kernels against the plain version there (valid and radius exact)."""
+    from sdpgs_torch.core.camera import Camera
+    from sdpgs_torch.ops.rasterize import composite_cuda
+    from sdpgs_torch.ops.rasterize import preprocess_cuda as pp
+
+    cam = Camera.create(R=np.eye(3), T=np.array([-0.35, 0.0, 0.0]), fovx=0.9, fovy=0.7,
+                        width=WIDTH, height=HEIGHT, device="cpu")
+    cam_vec = pp._cam_vec(cam)
+    out = {}
+    for P in PREPROCESS_SLOTS:
+        gen = torch.Generator(device=dev).manual_seed(P)
+
+        def r(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * scale
+
+        quat = r(P, 4)
+        fields = (r(P, 3) * torch.tensor([1.0, 0.75, 1.0], device=dev)
+                  + torch.tensor([0.0, 0.0, 4.0], device=dev),
+                  torch.exp(r(P, 3, scale=0.5) - 3.5), quat / quat.norm(dim=-1, keepdim=True),
+                  r(P, 1, 3, scale=0.3), r(P, 15, 3, scale=0.1),
+                  torch.ones(P, device=dev), torch.sigmoid(r(P)), r(P, 3))
+        offset = torch.zeros((P, 2), device=dev)
+        d_rows = r(P + 1, composite_cuda.NPAY)
+        fwd = (*fields, cam_vec, SH_DEGREE, WIDTH, HEIGHT)
+        bwd = (*fields[:6], d_rows, cam_vec, SH_DEGREE, WIDTH, HEIGHT)
+        k1 = pp.preprocess_payload_fwd(*fwd, means2d_offset=offset)
+        plain = pp.preprocess_payload_plain(*fields, cam, SH_DEGREE, means2d_offset=offset)
+        torch.cuda.synchronize()
+        agree = (torch.equal(k1.screen.valid, plain.screen.valid)
+                 and torch.equal(k1.screen.radius, plain.screen.radius)
+                 and bool(torch.isclose(k1.rows, plain.rows, rtol=1e-5, atol=1e-5).all()))
+        del plain
+        k1_ms = cuda_ms(lambda: pp.preprocess_payload_fwd(*fwd, means2d_offset=offset))
+        k4_ms = cuda_ms(lambda: pp.preprocess_payload_bwd(*bwd, means2d_offset=True))
+        rec = dict(k1_ms=k1_ms, k4_ms=k4_ms, visible=int(k1.screen.valid.sum()), agree=agree,
+                   k1_bound_ms=K1_BYTES_PER_SLOT * P / HBM_BYTES_PER_S * 1e3,
+                   k4_bound_ms=K4_BYTES_PER_SLOT * P / HBM_BYTES_PER_S * 1e3)
+        out[P] = rec
+        print(f"  K1 at {P} slots: {k1_ms:.4f} ms, {k1_ms / rec['k1_bound_ms']:.3f}x its bytes "
+              f"bound {rec['k1_bound_ms']:.4f} ms ({K1_BYTES_PER_SLOT} B a slot); K4 "
+              f"{k4_ms:.4f} ms, {k4_ms / rec['k4_bound_ms']:.3f}x its bound "
+              f"{rec['k4_bound_ms']:.4f} ms ({K4_BYTES_PER_SLOT} B a slot); {rec['visible']} "
+              f"visible; K1 agrees with the plain version {agree}", flush=True)
+        require(agree, f"K1 at {P} slots disagrees with the plain version")
+        del fields, d_rows, k1
+        torch.cuda.empty_cache()
+    return out
+
+
+def preprocess_times_main() -> int:
+    """``--preprocess-times``: build the kernels, print K1's and K4's
+    registers and spills, then preprocess_times, as one JSON line."""
+    from sdpgs_torch import _kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    _kernels.build()
+    in_src = False
+    for line in _kernels.BUILD_LOG.splitlines():
+        if line.startswith("== "):
+            in_src = line[3:].strip() in ("preprocess.cu", "preprocess_bwd.cu")
+        if in_src and ("registers" in line or "spill" in line or "entry function" in line
+                       or line.startswith("== ")):
+            print("  " + line.strip())
+    print(json.dumps({"preprocess": preprocess_times(torch.device("cuda"))}))
+    return 0
 
 
 def adam_inputs(P: int, dev, seed: int) -> tuple:
@@ -3646,13 +3761,14 @@ def drive(dev: torch.device, work: Path) -> int:
     T, K, pairs, contrib = (main_check[k] for k in ("T", "K", "pairs", "contrib"))
     with torch.no_grad():
         k1_ms, k4_ms = k1_k4_times(k1_args, k4_args)
-        k1_plain = cuda_ms(lambda: preprocess_cuda.preprocess_rows_plain(*k1_args))
+        k1_plain = cuda_ms(lambda: preprocess_cuda.preprocess_payload_plain(*k1_args))
         k2_ms = cuda_ms(lambda: binning.build_table(*k2_args))
         k2_plain = cuda_ms(lambda: binning.build_table_plain(*k2_args))
         k3_ms = cuda_ms(lambda: composite_cuda.composite_gather(*k3_args,
                                                                 rects=main_check["rects"]))
         k3_plain = cuda_ms(lambda: composite_cuda.composite_gather_plain(*k3_args))
-        k4_plain = cuda_ms(lambda: preprocess_cuda.preprocess_vjp_plain(*k4_args))
+        k4_plain = cuda_ms(lambda: preprocess_cuda.preprocess_payload_vjp_plain(
+            *k1_args[:6], k4_args[6], k1_args[8], SH_DEGREE))
         k5_ms = cuda_ms(lambda: composite_cuda.composite_gather_bwd(*k5_args))
         k5_shapes = k5_shape_times(g, cams[0])
         k5_plain = cuda_ms(lambda: composite_cuda.composite_vjp_plain(
@@ -3678,16 +3794,16 @@ def drive(dev: torch.device, work: Path) -> int:
         k8_plain = cuda_ms(lambda: launch_floor_plain(*probe_args))
         k8_lib = cuda_ms(lambda: probe_args[0] + probe_args[1] + probe_args[2][:, 0])
     adam_shapes = adam_times(dev)
-    nsh = 3 * (SH_DEGREE + 1) ** 2
+    preprocess_times(dev)
     npix = cfg.tile ** 2
     # K2 reads n_valid rects and ids; K3 and K5 the listed entries and the
     # payload rows they reference; K5 writes the whole payload gradient
     payload_bytes = main_check["payload_numel"] * 4
     read_bytes = main_check["rows_read"] * main_check["row_bytes"] + main_check["entries"] * 4
-    k1_bytes = (preprocess_cuda.NGEO + nsh + preprocess_cuda.NOUT) * 4 * CAPACITY
+    k1_bytes = K1_BYTES_PER_SLOT * CAPACITY
     k2_bytes = (2 * main_check["n_valid"] + 1 + T * K + T) * 4
     k3_bytes = read_bytes + (T + T * npix * (composite_cuda.NCH + 1)) * 4
-    k4_bytes = (K4_BYTES_ROWS + 2 * nsh) * 4 * CAPACITY
+    k4_bytes = K4_BYTES_PER_SLOT * CAPACITY
     k5_bytes = read_bytes + payload_bytes + T * npix * (composite_cuda.NCH + 3) * 4
     # what K5's fixed order moves beyond the function's own bytes: each
     # block's partials below its start written and read once, the entry map
@@ -3782,5 +3898,6 @@ def drive(dev: torch.device, work: Path) -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--k5-times": k5_times_main, "--adam-times": adam_times_main}
+    modes = {"--k5-times": k5_times_main, "--adam-times": adam_times_main,
+             "--preprocess-times": preprocess_times_main}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -72,8 +72,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # geo, sh, cam(host [39]), out, P, deg, width, height, near, low_pass, stream
-    "sdpgs_preprocess_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # xyz, scale, quat, dc, rest, rest_stride, alive, opacity, feature, color(or
+    # null), offset(or null), cam(host [39]), rows, mean2d, depth, radius, valid, P,
+    # deg, width, height, near, low_pass, stream
+    "sdpgs_preprocess_fwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _F, _F, _P],
     # packed_s, order, n_valid(dev), table, totals, cover(scratch), P, n_local,
     # t0, tiles_x, K, D, stream
     "sdpgs_bin_table": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -87,9 +90,12 @@ _SIGNATURES = {
     # the same with stats (or null) after last_contrib
     "sdpgs_composite_fwd_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _F, _F, _P],
-    # geo, sh, ct, cam(host [39]), dgeo, dsh, masks(or null), P, deg, width,
-    # height, near, low_pass, stream
-    "sdpgs_preprocess_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # xyz, scale, quat, dc, rest, rest_stride, alive, d_rows, color(0/1),
+    # cam(host [39]), d_xyz, d_scale, d_quat, d_dc, d_rest, d_opacity, d_feature,
+    # d_offset, d_color, masks (the last three or null), P, deg, width, height,
+    # near, low_pass, stream
+    "sdpgs_preprocess_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # payload, table, rects, final_t, last_contrib, g_values, g_final_t,
     # d_payload, stats(or null), map, partial, tops (scratch), P, num_tiles
     # (rows), t0, grid_tiles, tiles_x, tile, K, D, alpha_min, alpha_max, stream

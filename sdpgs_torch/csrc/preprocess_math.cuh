@@ -3,8 +3,13 @@
 // the quantities, and the step-function masks, that K1 computed. Both
 // files are built with -fmad=false; the arithmetic copies the plain
 // version (preprocess_cuda.py:_row_math) operation by operation, in the
-// same association order, with IEEE division and sqrt.
+// same association order, with IEEE division and sqrt. The math takes one
+// Gaussian's values (Geo, an SH accessor, Cot) and knows no layout; the
+// staging helpers below move a block's rows between the Gaussians' own
+// row-major tensors and shared memory.
 #pragma once
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -37,6 +42,104 @@ SDPGS_DEVICE float maxf_nan(float v, float lo) {
   return v != v ? v : fmaxf(v, lo);
 }
 
+// One Gaussian's geometry: position, activated scale, normalized
+// quaternion (w, x, y, z) and the alive flag.
+struct Geo {
+  float x, y, z, s0, s1, s2, r, qx, qy, qz, alive;
+};
+
+// One Gaussian's SH coefficients where a block staged them: coefficient 0
+// from features_dc, 1.. from features_rest. sh(k, ch).
+struct ShRow {
+  const float* dc;    // 3 floats
+  const float* rest;  // 3 per coefficient past the first
+  SDPGS_DEVICE float operator()(int k, int ch) const {
+    return k == 0 ? dc[ch] : rest[3 * (k - 1) + ch];
+  }
+};
+
+// The cotangents of the outputs that carry a gradient: the screen centre,
+// depth, conic and the three colour channels (0 where the colour is
+// another tensor's).
+struct Cot {
+  float mx, my, depth, ca, cb, cc, rgb[3];
+};
+
+// Staging a block's rows between a row-major [*, stride] f32 tensor and
+// shared memory s[r * W + c] (16-byte aligned), W floats a row. A block of
+// T threads owns rows [r0, r0 + n). Where the block is whole (n == T), the
+// rows are packed (stride == W) and the span is 16-byte aligned, the span
+// moves in 16-byte accesses, each thread's loads all issued before its
+// first store (Rows::load, then Rows::store); else one float at a time
+// (a block's last rows, features_rest past the active degree).
+template <int W>
+SDPGS_DEVICE void stage_in_floats(float* s, const float* src, int stride, int r0, int n) {
+  if constexpr (W > 0) {
+    for (int i = threadIdx.x; i < n * W; i += blockDim.x) {
+      const int r = i / W;
+      s[i] = src[(size_t)(r0 + r) * stride + (i - r * W)];
+    }
+  }
+}
+
+template <int W, int T>
+struct Rows {
+  static_assert(T % 4 == 0, "a whole block's span is whole float4s");
+  static constexpr int N4 = W * T / 4;
+  static constexpr int PER = (N4 + T - 1) / T;
+  float4 v[PER > 0 ? PER : 1];
+  bool fast;
+
+  SDPGS_DEVICE void load(const float* src, int stride, int r0, int n) {
+    const float* g = src + (size_t)r0 * stride;
+    fast = W > 0 && n == T && stride == W && (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+    if (fast) {
+      const float4* g4 = reinterpret_cast<const float4*>(g);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int i = threadIdx.x + j * T;
+        if (i < N4) v[j] = g4[i];
+      }
+    }
+  }
+
+  SDPGS_DEVICE void store(float* s, const float* src, int stride, int r0, int n) const {
+    if (fast) {
+      float4* s4 = reinterpret_cast<float4*>(s);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int i = threadIdx.x + j * T;
+        if (i < N4) s4[i] = v[j];
+      }
+    } else if (n > 0) {
+      stage_in_floats<W>(s, src, stride, r0, n);
+    }
+  }
+};
+
+// The inverse of Rows: rows [r0, r0 + n) of dst from s[r * W + c], the
+// columns past W written 0.
+template <int W, int T>
+SDPGS_DEVICE void stage_out(float* dst, int stride, const float* s, int r0, int n) {
+  float* g = dst + (size_t)r0 * stride;
+  if (n == T && stride == W && (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    constexpr int N4 = W * T / 4;
+    float4* g4 = reinterpret_cast<float4*>(g);
+    const float4* s4 = reinterpret_cast<const float4*>(s);
+#pragma unroll
+    for (int j = 0; j < (N4 + T - 1) / T; ++j) {
+      const int i = threadIdx.x + j * T;
+      if (i < N4) g4[i] = s4[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * stride; i += blockDim.x) {
+      const int r = i / stride;
+      const int c = i - r * stride;
+      dst[(size_t)(r0 + r) * stride + c] = c < W ? s[r * W + c] : 0.0f;
+    }
+  }
+}
+
 // Everything the forward computes for one Gaussian that the backward
 // reads again.
 struct Fwd {
@@ -52,22 +155,21 @@ struct Fwd {
   float res[3], rgb[3];
 };
 
-// geo [11, n] and sh [3*(DEG+1)^2, n] row-major, Gaussian p.
-template <int DEG>
-SDPGS_DEVICE void forward(const float* geo, const float* sh, size_t n, int p,
-                          const CamVec& cam, int width, int height, float near,
-                          float low_pass, Fwd& f) {
-  f.x = geo[0 * n + p];
-  f.y = geo[1 * n + p];
-  f.z = geo[2 * n + p];
-  f.s0 = geo[3 * n + p];
-  f.s1 = geo[4 * n + p];
-  f.s2 = geo[5 * n + p];
-  f.r = geo[6 * n + p];
-  f.qx = geo[7 * n + p];
-  f.qy = geo[8 * n + p];
-  f.qz = geo[9 * n + p];
-  const float alive = geo[10 * n + p];
+// One Gaussian: geometry g, SH coefficients sh(k, ch) for k < (DEG+1)^2.
+template <int DEG, class SH>
+SDPGS_DEVICE void forward(const Geo& g, const SH& sh, const CamVec& cam, int width,
+                          int height, float near, float low_pass, Fwd& f) {
+  f.x = g.x;
+  f.y = g.y;
+  f.z = g.z;
+  f.s0 = g.s0;
+  f.s1 = g.s1;
+  f.s2 = g.s2;
+  f.r = g.r;
+  f.qx = g.qx;
+  f.qy = g.qy;
+  f.qz = g.qz;
+  const float alive = g.alive;
   const float x = f.x, y = f.y, z = f.z;
   const float r = f.r, qx = f.qx, qy = f.qy, qz = f.qz;
   const float* V = cam.v;
@@ -158,7 +260,7 @@ SDPGS_DEVICE void forward(const float* geo, const float* sh, size_t n, int p,
   const float xy = dx * dy, yz = dy * dz, xz = dx * dz;
 
   for (int ch = 0; ch < 3; ++ch) {
-    auto coef = [&](int k) { return sh[(size_t)(3 * k + ch) * n + p]; };
+    auto coef = [&](int k) { return sh(k, ch); };
     float res = C0 * coef(0);
     if (DEG > 0) {
       res = res - C1 * dy * coef(1) + C1 * dz * coef(2) - C1 * dx * coef(3);
@@ -194,23 +296,26 @@ constexpr int kMaskTzSmall = 4;    // |tz| < 1e-6 (tz_safe substituted)
 constexpr int kMaskDetZero = 8;    // det == 0 (det_safe substituted)
 constexpr int kMaskRgb0 = 16;      // rgb channel c unclamped: bit 16 << c
 
-// The vjp of forward() for Gaussian p: cotangent ct [11, n] (rows 0, valid,
-// and 7, radius, carry none), gradients into dgeo[11] (row 10, alive, is
-// zero) and the SH rows dsh [3*(DEG+1)^2, n]. The masks are those of the
-// plain version's autograd: torch.clamp passes the gradient where the
-// input lies inside the closed interval, clamp_min where it is >= the
+// The vjp of forward() for one Gaussian at cotangent ct (valid and radius
+// carry none): gradients into dgeo[10] (x y z, s0 s1 s2, r qx qy qz; alive
+// has none) and, through dsh(k, ch, value), the SH coefficients; the
+// forward's validity into *validf. dsh(k, ch, ...) is called after every
+// read of sh(k, ch), so it may write where sh reads. The masks are those
+// of the plain version's autograd: torch.clamp passes the gradient where
+// the input lies inside the closed interval, clamp_min where it is >= the
 // bound, torch.where only on its selected side. Returns the mask word.
-template <int DEG>
-SDPGS_DEVICE int backward(const float* geo, const float* sh, const float* ct, size_t n,
-                          int p, const CamVec& cam, int width, int height, float near,
-                          float low_pass, float* dgeo, float* dsh) {
+template <int DEG, class SH, class DSH>
+SDPGS_DEVICE int backward(const Geo& g, const SH& sh, const Cot& ct, const CamVec& cam,
+                          int width, int height, float near, float low_pass, float* dgeo,
+                          const DSH& dsh, float* validf) {
   Fwd f;
-  forward<DEG>(geo, sh, n, p, cam, width, height, near, low_pass, f);
+  forward<DEG>(g, sh, cam, width, height, near, low_pass, f);
+  *validf = f.validf;
   const float* V = cam.v;
   const float* FP = cam.v + 16;
   const float fx = cam.v[32], fy = cam.v[33];
-  const float g_mx = ct[1 * n + p], g_my = ct[2 * n + p], g_depth = ct[3 * n + p];
-  const float g_ca = ct[4 * n + p], g_cb = ct[5 * n + p], g_cc = ct[6 * n + p];
+  const float g_mx = ct.mx, g_my = ct.my, g_depth = ct.depth;
+  const float g_ca = ct.ca, g_cb = ct.cb, g_cc = ct.cc;
   int mask = 0;
 
   // pixel centre <- homogeneous projection
@@ -336,11 +441,12 @@ SDPGS_DEVICE int backward(const float* geo, const float* sh, const float* ct, si
     float d_res = 0.0f;
     if (f.res[ch] >= 0.0f) {
       mask |= kMaskRgb0 << ch;
-      d_res = ct[(size_t)(8 + ch) * n + p];
+      d_res = ct.rgb[ch];
     }
+#pragma unroll
     for (int k = 0; k < NB; ++k) {
-      dsh[(size_t)(3 * k + ch) * n + p] = d_res * basis[k];
-      G[k] += d_res * sh[(size_t)(3 * k + ch) * n + p];
+      G[k] += d_res * sh(k, ch);
+      dsh(k, ch, d_res * basis[k]);
     }
   }
   float d_x = 0.0f, d_y = 0.0f, d_z = 0.0f;
@@ -387,7 +493,6 @@ SDPGS_DEVICE int backward(const float* geo, const float* sh, const float* ct, si
   dgeo[7] = d_qx;
   dgeo[8] = d_qy;
   dgeo[9] = d_qz;
-  dgeo[10] = 0.0f;
   return mask;
 }
 

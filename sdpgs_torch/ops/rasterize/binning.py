@@ -29,8 +29,8 @@ import torch
 
 from sdpgs_torch import _kernels
 from sdpgs_torch.config import RasterizeConfig
-from sdpgs_torch.ops.rasterize.composite_cuda import NPAY, squares
-from sdpgs_torch.ops.rasterize.preprocess import Preprocessed
+from sdpgs_torch.ops.rasterize.composite_cuda import squares
+from sdpgs_torch.ops.rasterize.payload import NPAY, Screen
 
 
 class Binning(NamedTuple):
@@ -214,7 +214,7 @@ def build_table(packed_s, order, n_valid, num_tiles: int, tiles_x: int,
     return table, totals
 
 
-def packed_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig):
+def packed_rects(prep: Screen, width: int, height: int, cfg: RasterizeConfig):
     """Tile rects packed into one i32 per Gaussian, by Gaussian id (empty
     for the culled), with the depth sort's key and the count of valid
     ones. Returns (packed, depth_key, n_valid)."""
@@ -238,14 +238,14 @@ def _sorted(packed, depth_key, n_valid):
     return packed[order].contiguous(), order.to(torch.int32), n_valid
 
 
-def sort_rects(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig):
+def sort_rects(prep: Screen, width: int, height: int, cfg: RasterizeConfig):
     """Tile rects packed into one i32 per Gaussian, depth-sorted (stable;
     culled Gaussians last with empty rects). Returns (packed_s, order,
     n_valid)."""
     return _sorted(*packed_rects(prep, width, height, cfg))
 
 
-def bin_gaussians(prep: Preprocessed, width: int, height: int, cfg: RasterizeConfig,
+def bin_gaussians(prep: Screen, width: int, height: int, cfg: RasterizeConfig,
                   tile_range: tuple[int, int] | None = None) -> Binning:
     """Depth sort, then the [T, K] table, counts and capacity telemetry;
     with ``tile_range=(t0, n_local)`` the rows of those tiles only (T =

@@ -23,13 +23,13 @@ from torch.autograd.function import once_differentiable
 
 from sdpgs_torch import _kernels
 from sdpgs_torch.config import RasterizeConfig
+from sdpgs_torch.ops.rasterize import payload as pay_lib
 from sdpgs_torch.ops.rasterize.composite import (
     TileOutputs,
     composite_tiles,
     tile_pixel_coords_range,
 )
-
-NPAY = 13   # xy(2) conic(3) opacity*valid(1) rgb(3) depth(1) feature(3)
+from sdpgs_torch.ops.rasterize.payload import NPAY
 NCH = 7     # composited channels: rgb, depth, feature
 SQUARE = 16  # composite_math.cuh kSquare: a block's side where it divides the tile
 
@@ -38,6 +38,13 @@ def _check_payload(payload, num_gaussians: int) -> None:
     if payload.ndim != 2 or tuple(payload.shape) != (num_gaussians + 1, NPAY):
         raise ValueError(f"payload: expected [{num_gaussians + 1}, {NPAY}] (the zero "
                          f"sentinel row last), got {list(payload.shape)}")
+
+
+def _columns(g):
+    """A gathered [..., NPAY] payload as composite_tiles takes it: mean2d,
+    conic, opacity and the composited values."""
+    return (g[..., pay_lib.MEAN2D], g[..., pay_lib.CONIC], g[..., pay_lib.OPACITY],
+            g[..., pay_lib.VALUES])
 
 
 def _grid_rows(table, tiles_x: int, tiles_y: int, t0: int, num_gaussians: int):
@@ -61,7 +68,7 @@ def composite_gather_plain(payload, table, counts, tiles_x: int, tiles_y: int,
     g = payload[table.long()]                                  # [T, K, 13]
     px, py = tile_pixel_coords_range(t0, table.shape[0], tiles_x, cfg.tile,
                                      device=payload.device)
-    return composite_tiles(g[..., 0:2], g[..., 2:5], g[..., 5], g[..., 6:13], px, py, cfg)
+    return composite_tiles(*_columns(g), px, py, cfg)
 
 
 def composite_vjp_plain(payload, table, counts, tiles_x: int, tiles_y: int,
@@ -84,7 +91,7 @@ def composite_vjp_plain(payload, table, counts, tiles_x: int, tiles_y: int,
         for r0 in range(0, T, step):
             sl = slice(r0, min(T, r0 + step))
             g = pay[table[sl].long()]
-            out = composite_tiles(g[..., 0:2], g[..., 2:5], g[..., 5], g[..., 6:13],
+            out = composite_tiles(*_columns(g),
                                   px[sl], py[sl], cfg)
             d_payload += torch.autograd.grad((out.values, out.final_t), pay,
                                              (g_values[sl], g_final_t[sl]))[0]

@@ -1,25 +1,33 @@
-"""Fused preprocess + SH colour: kernels K1 (``csrc/preprocess.cu``,
-forward) and K4 (``csrc/preprocess_bwd.cu``, its vjp) and their plain
-PyTorch versions.
+"""Fused preprocess + SH colour into the compositor's payload: kernels K1
+(``csrc/preprocess.cu``, forward) and K4 (``csrc/preprocess_bwd.cu``, its
+vjp) and their plain PyTorch versions.
 
 Counterpart of ``sdpgs_tpu/ops/rasterize/preprocess_pallas.py``. The whole
 per-Gaussian chain (world->view, projection, quaternion+scale -> EWA
 cov2D -> conic -> radius, culling, SH degree 0..3 with the +0.5 clamp)
-runs on row-major [rows, P] arrays: 11 geometry rows in, 11 rows out.
-:func:`_row_math` is the plain version, a copy of the JAX row math; K1
-repeats it operation by operation, and K4 back-propagates through it by
-hand. On CUDA tensors :func:`preprocess_rows` is an ``autograd.Function``
-whose forward launches K1 and whose backward launches K4; on CPU tensors
-autograd runs through :func:`_row_math`.
+turns the Gaussians' own tensors into the [P+1, 13] payload rows of
+``payload.py`` and the binning record beside them. :func:`preprocess_payload`
+is the entry: on CUDA tensors an ``autograd.Function`` whose forward
+launches K1 (it reads each field in place and writes the payload) and whose
+backward launches K4 (from the payload's gradient to each field's, in the
+field's own shape); on CPU tensors :func:`preprocess_payload_plain`, the
+row chain ``pack_rows`` -> :func:`_row_math` on [rows, P] arrays ->
+``split_rows`` -> ``payload.make_payload``, which autograd differentiates
+(:func:`preprocess_payload_vjp_plain`, the plain version of K4).
+K1 repeats :func:`_row_math` operation by operation, and K4
+back-propagates through it by hand.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from sdpgs_torch import _kernels
 from sdpgs_torch.core import sh as sh_lib
+from sdpgs_torch.ops.rasterize.payload import NPAY, Payload, Screen, make_payload, screen_of
 from sdpgs_torch.ops.rasterize.preprocess import Preprocessed, ndc_to_pixel
 
 NGEO = 11    # x y z sx sy sz qw qx qy qz alive
@@ -187,20 +195,6 @@ def preprocess_rows_plain(geoT, shT, cam_vec, deg: int, width: int, height: int,
     return torch.stack(rows)
 
 
-def preprocess_vjp_plain(geoT, shT, cam_vec, ct, deg: int, width: int, height: int,
-                         near: float = 0.2, low_pass: float = 0.3):
-    """Plain PyTorch version of K4: autograd's vjp of :func:`_row_math` at
-    cotangent ``ct`` [NOUT, P]; returns (d geoT, d shT)."""
-    _kernels.plain_call("preprocess_bwd")
-    with torch.enable_grad():
-        g = geoT.detach().requires_grad_()
-        s = shT.detach().requires_grad_()
-        cam = cam_vec.to(device=geoT.device, dtype=torch.float32)
-        rows = torch.stack(_row_math(g, s, cam, deg=deg, width=width, height=height,
-                                     near=near, low_pass=low_pass))
-        return torch.autograd.grad(rows, (g, s), ct)
-
-
 # Bits of K4's mask word (csrc/preprocess_math.cuh, kMask*).
 MASK_CLIP_X, MASK_CLIP_Y, MASK_TZ_SMALL, MASK_DET_ZERO, MASK_RGB0 = 1, 2, 4, 8, 16
 
@@ -232,90 +226,9 @@ def _host_cam(cam_vec) -> torch.Tensor:
     return cam_host
 
 
-def _check_rows(geoT, shT, deg: int) -> None:
-    if not 0 <= deg <= 3:
-        raise ValueError(f"SH degree {deg} outside 0..3")
-    P = geoT.shape[1]
-    _kernels.check(geoT, "geoT", torch.float32, (NGEO, P))
-    _kernels.check(shT, "shT", torch.float32, (3 * (deg + 1) ** 2, P))
-
-
-def preprocess_rows_fwd(geoT, shT, cam_vec, deg: int, width: int, height: int,
-                        near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
-    """Launch K1 on CUDA tensors autograd does not track: [NOUT, P]."""
-    _check_rows(geoT, shT, deg)
-    cam_host = _host_cam(cam_vec)
-    P = geoT.shape[1]
-    out = torch.empty((NOUT, P), dtype=torch.float32, device=geoT.device)
-    _kernels.launch(
-        "preprocess", "sdpgs_preprocess_fwd",
-        _kernels.ptr(geoT), _kernels.ptr(shT), _kernels.ptr(cam_host), _kernels.ptr(out),
-        P, deg, int(width), int(height), float(near), float(low_pass),
-        _kernels.stream(geoT.device),
-    )
-    return out
-
-
-def preprocess_rows_bwd(geoT, shT, cam_vec, ct, deg: int, width: int, height: int,
-                        near: float = 0.2, low_pass: float = 0.3, masks=None):
-    """Launch K4: the vjp of K1 at cotangent ``ct`` [NOUT, P] on CUDA
-    tensors autograd does not track; returns (d geoT, d shT). ``masks``, an
-    int32 [P] tensor, receives each Gaussian's mask word when given."""
-    _check_rows(geoT, shT, deg)
-    P = geoT.shape[1]
-    _kernels.check(ct, "ct", torch.float32, (NOUT, P))
-    if masks is not None:
-        _kernels.check(masks, "masks", torch.int32, (P,))
-    cam_host = _host_cam(cam_vec)
-    dgeo = torch.empty_like(geoT)
-    dsh = torch.empty_like(shT)
-    _kernels.launch(
-        "preprocess_bwd", "sdpgs_preprocess_bwd",
-        _kernels.ptr(geoT), _kernels.ptr(shT), _kernels.ptr(ct), _kernels.ptr(cam_host),
-        _kernels.ptr(dgeo), _kernels.ptr(dsh), _kernels.ptr(masks), P, deg, int(width),
-        int(height), float(near), float(low_pass), _kernels.stream(geoT.device),
-    )
-    return dgeo, dsh
-
-
-class _PreprocessRows(torch.autograd.Function):
-    """K1 forward, K4 backward. The launchers get detached tensors (no
-    copy): autograd tracks them here, not inside a kernel."""
-
-    @staticmethod
-    def forward(ctx, geoT, shT, cam_vec, deg, width, height, near, low_pass):
-        geoT, shT = geoT.detach(), shT.detach()
-        ctx.save_for_backward(geoT, shT)
-        ctx.args = (_host_cam(cam_vec), deg, width, height, near, low_pass)
-        return preprocess_rows_fwd(geoT, shT, *ctx.args)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, ct):
-        geoT, shT = ctx.saved_tensors
-        cam_host, deg, width, height, near, low_pass = ctx.args
-        dgeo, dsh = preprocess_rows_bwd(geoT, shT, cam_host, ct.contiguous(), deg, width,
-                                        height, near, low_pass)
-        return dgeo, dsh, None, None, None, None, None, None
-
-
-def preprocess_rows(geoT, shT, cam_vec, deg: int, width: int, height: int,
-                    near: float = 0.2, low_pass: float = 0.3) -> torch.Tensor:
-    """K1 (backward K4) on CUDA tensors, the plain version on CPU tensors.
-
-    geoT [NGEO, P] and shT [3*(deg+1)^2, P] f32; cam_vec [CAMN] (read on
-    the host: it is passed to the kernels by value). Returns [NOUT, P],
-    differentiable with respect to geoT and shT."""
-    if not geoT.is_cuda:
-        return preprocess_rows_plain(geoT, shT, cam_vec, deg, width, height,
-                                     near, low_pass)
-    return _PreprocessRows.apply(geoT, shT, cam_vec, deg, int(width), int(height),
-                                 float(near), float(low_pass))
-
-
 def pack_rows(xyz, scale, quat, features, alive, sh_degree: int):
     """[P,3] xyz, [P,3] activated scale, [P,4] normalized quat, [P,K,3] SH,
-    [P] alive -> the kernel's [NGEO, P] and [3*(deg+1)^2, P] row inputs."""
+    [P] alive -> the plain version's [NGEO, P] and [3*(deg+1)^2, P] rows."""
     P = xyz.shape[0]
     K = (sh_degree + 1) ** 2
     f32 = torch.float32
@@ -324,18 +237,8 @@ def pack_rows(xyz, scale, quat, features, alive, sh_degree: int):
     return geoT.to(f32).contiguous(), shT.to(f32).contiguous()
 
 
-def preprocess_color(xyz, scale, quat, features, alive, cam, sh_degree: int,
-                     near: float = 0.2, low_pass: float = 0.3
-                     ) -> tuple[Preprocessed, torch.Tensor]:
-    """Fused preprocess + SH colour; returns (Preprocessed, color [P, 3]),
-    differentiable with respect to xyz, scale, quat and features."""
-    geoT, shT = pack_rows(xyz, scale, quat, features, alive, sh_degree)
-    return split_rows(preprocess_rows(geoT, shT, _cam_vec(cam), sh_degree, int(cam.width),
-                                      int(cam.height), near, low_pass))
-
-
 def split_rows(out) -> tuple[Preprocessed, torch.Tensor]:
-    """K1's [11, P] rows as (Preprocessed, color [P, 3])."""
+    """The plain version's [NOUT, P] rows as (Preprocessed, color [P, 3])."""
     prep = Preprocessed(
         valid=out[0] > 0.0,
         mean2d=torch.stack([out[1], out[2]], dim=-1),
@@ -345,3 +248,213 @@ def split_rows(out) -> tuple[Preprocessed, torch.Tensor]:
     )
     color = torch.stack([out[8], out[9], out[10]], dim=-1)
     return prep, color
+
+
+class FieldGrads(NamedTuple):
+    """K4's gradients, each in its field's shape (the order of its
+    outputs); ``means2d_offset`` and ``color`` None where the forward had
+    none. ``quat`` is the transpose of [4, P] rows: ``normalize_quat``'s
+    backward sums over the four components, PyTorch rounds that sum
+    differently over a packed last dimension, and in this layout the
+    rotation's gradient has the bits the plain version's ``pack_rows``
+    chain gives it."""
+
+    xyz: torch.Tensor
+    scale: torch.Tensor
+    quat: torch.Tensor
+    features_dc: torch.Tensor
+    features_rest: torch.Tensor
+    opacity: torch.Tensor
+    feature: torch.Tensor
+    means2d_offset: Optional[torch.Tensor]
+    color: Optional[torch.Tensor]
+
+
+def preprocess_payload_plain(xyz, scale, quat, features_dc, features_rest, alive, opacity,
+                             feature, cam, sh_degree: int, *, color=None, means2d_offset=None,
+                             near: float = 0.2, low_pass: float = 0.3) -> Payload:
+    """Plain PyTorch version of K1, and through autograd of K4: the row
+    chain ``pack_rows`` -> :func:`_row_math` -> ``split_rows`` ->
+    ``make_payload``, on the tensors' own device. Arguments as
+    :func:`preprocess_payload`."""
+    features = torch.cat([features_dc, features_rest], dim=1)
+    geoT, shT = pack_rows(xyz, scale, quat, features, alive, sh_degree)
+    prep, rgb = split_rows(preprocess_rows_plain(geoT, shT, _cam_vec(cam), sh_degree,
+                                                 int(cam.width), int(cam.height), near, low_pass))
+    if means2d_offset is not None:
+        prep = prep._replace(mean2d=prep.mean2d + means2d_offset)
+    rows = make_payload(prep, opacity, rgb if color is None else color, feature)
+    return Payload(rows, screen_of(prep))
+
+
+def preprocess_payload_vjp_plain(xyz, scale, quat, features_dc, features_rest, alive, d_rows,
+                                 cam, sh_degree: int, *, color: bool = False,
+                                 means2d_offset: bool = False, near: float = 0.2,
+                                 low_pass: float = 0.3) -> FieldGrads:
+    """Plain PyTorch version of K4: autograd's gradient of every field at
+    the payload gradient ``d_rows`` [P+1, NPAY], through
+    :func:`preprocess_payload_plain` (the opacity's, feature's, colour's and
+    offset's gradients read no value of theirs). Arguments as
+    :func:`preprocess_payload_bwd`, the camera as a ``Camera``."""
+    _kernels.plain_call("preprocess_bwd")
+    P, dev = xyz.shape[0], xyz.device
+    with torch.enable_grad():
+        fields = [t.detach().requires_grad_() for t in (xyz, scale, quat, features_dc,
+                                                       features_rest)]
+        extra = {"opacity": torch.ones(P, device=dev), "feature": torch.zeros((P, 3), device=dev)}
+        if means2d_offset:
+            extra["means2d_offset"] = torch.zeros((P, 2), device=dev)
+        if color:
+            extra["color"] = torch.zeros((P, 3), device=dev)
+        extra = {k: v.requires_grad_() for k, v in extra.items()}
+        rows = preprocess_payload_plain(*fields, alive, extra["opacity"], extra["feature"], cam,
+                                        sh_degree, color=extra.get("color"),
+                                        means2d_offset=extra.get("means2d_offset"), near=near,
+                                        low_pass=low_pass).rows
+        got = torch.autograd.grad(rows, fields + list(extra.values()), d_rows)
+    names = ("xyz", "scale", "quat", "features_dc", "features_rest") + tuple(extra)
+    return FieldGrads(**{**dict.fromkeys(FieldGrads._fields), **dict(zip(names, got))})
+
+
+def _check_fields(xyz, scale, quat, features_dc, features_rest, alive, deg: int) -> int:
+    """What K1 and K4 read of every Gaussian; returns P."""
+    if not 0 <= deg <= 3:
+        raise ValueError(f"SH degree {deg} outside 0..3")
+    P = xyz.shape[0]
+    f32 = torch.float32
+    for t, name, shape in ((xyz, "xyz", (P, 3)), (scale, "scale", (P, 3)),
+                           (quat, "quat", (P, 4)), (features_dc, "features_dc", (P, 1, 3)),
+                           (alive, "alive", (P,))):
+        _kernels.check(t, name, f32, shape)
+    rest = tuple(features_rest.shape)
+    if len(rest) != 3 or rest[0] != P or rest[2] != 3 or rest[1] < (deg + 1) ** 2 - 1:
+        raise ValueError(f"features_rest: expected [{P}, >= {(deg + 1) ** 2 - 1}, 3], "
+                         f"got {list(rest)}")
+    _kernels.check(features_rest, "features_rest", f32, rest)
+    return P
+
+
+def preprocess_payload_fwd(xyz, scale, quat, features_dc, features_rest, alive, opacity,
+                           feature, cam_vec, deg: int, width: int, height: int,
+                           near: float = 0.2, low_pass: float = 0.3, color=None,
+                           means2d_offset=None) -> Payload:
+    """Launch K1 on CUDA tensors autograd does not track (arguments as
+    :func:`preprocess_payload`, the camera as its [CAMN] vector)."""
+    P = _check_fields(xyz, scale, quat, features_dc, features_rest, alive, deg)
+    f32 = torch.float32
+    _kernels.check(opacity, "opacity", f32, (P,))
+    _kernels.check(feature, "feature", f32, (P, 3))
+    if color is not None:
+        _kernels.check(color, "color", f32, (P, 3))
+    if means2d_offset is not None:
+        _kernels.check(means2d_offset, "means2d_offset", f32, (P, 2))
+    cam_host = _host_cam(cam_vec)
+    dev = xyz.device
+    rows = torch.empty((P + 1, NPAY), dtype=f32, device=dev)
+    screen = Screen(valid=torch.empty((P,), dtype=torch.bool, device=dev),
+                    mean2d=torch.empty((P, 2), dtype=f32, device=dev),
+                    depth=torch.empty((P,), dtype=f32, device=dev),
+                    radius=torch.empty((P,), dtype=f32, device=dev))
+    ptr = _kernels.ptr
+    _kernels.launch(
+        "preprocess", "sdpgs_preprocess_fwd",
+        ptr(xyz), ptr(scale), ptr(quat), ptr(features_dc), ptr(features_rest),
+        3 * features_rest.shape[1], ptr(alive), ptr(opacity), ptr(feature), ptr(color),
+        ptr(means2d_offset), ptr(cam_host), ptr(rows), ptr(screen.mean2d), ptr(screen.depth),
+        ptr(screen.radius), ptr(screen.valid), P, deg, int(width), int(height), float(near),
+        float(low_pass), _kernels.stream(dev),
+    )
+    return Payload(rows, screen)
+
+
+def preprocess_payload_bwd(xyz, scale, quat, features_dc, features_rest, alive, d_rows,
+                           cam_vec, deg: int, width: int, height: int, near: float = 0.2,
+                           low_pass: float = 0.3, color: bool = False,
+                           means2d_offset: bool = False, masks=None) -> FieldGrads:
+    """Launch K4: every field's gradient from the payload's ``d_rows``
+    [P+1, NPAY], on CUDA tensors autograd does not track. ``color`` and
+    ``means2d_offset`` say whether the forward had them (their gradients
+    are then returned, and a given colour leaves the SH none). ``masks``,
+    an int32 [P] tensor, receives each Gaussian's mask word when given."""
+    P = _check_fields(xyz, scale, quat, features_dc, features_rest, alive, deg)
+    _kernels.check(d_rows, "d_rows", torch.float32, (P + 1, NPAY))
+    if masks is not None:
+        _kernels.check(masks, "masks", torch.int32, (P,))
+    cam_host = _host_cam(cam_vec)
+    empty = torch.empty_like
+    grads = FieldGrads(
+        xyz=empty(xyz), scale=empty(scale), quat=quat.new_empty((4, P)).T,
+        features_dc=empty(features_dc),
+        features_rest=empty(features_rest), opacity=empty(alive),
+        feature=empty(xyz),
+        means2d_offset=torch.empty((P, 2), dtype=torch.float32, device=xyz.device)
+        if means2d_offset else None,
+        color=empty(xyz) if color else None)
+    ptr = _kernels.ptr
+    _kernels.launch(
+        "preprocess_bwd", "sdpgs_preprocess_bwd",
+        ptr(xyz), ptr(scale), ptr(quat), ptr(features_dc), ptr(features_rest),
+        3 * features_rest.shape[1], ptr(alive), ptr(d_rows), int(bool(color)), ptr(cam_host),
+        *(ptr(t) for t in grads), ptr(masks), P, deg, int(width), int(height), float(near),
+        float(low_pass), _kernels.stream(xyz.device),
+    )
+    return grads
+
+
+class _PreprocessPayload(torch.autograd.Function):
+    """K1 forward, K4 backward. The launchers get detached tensors (no
+    copy): autograd tracks them here, not inside a kernel. Only the payload
+    rows carry a gradient."""
+
+    @staticmethod
+    def forward(ctx, xyz, scale, quat, features_dc, features_rest, alive, opacity, feature,
+                color, means2d_offset, cam_host, deg, width, height, near, low_pass):
+        fields = tuple(t.detach() for t in (xyz, scale, quat, features_dc, features_rest,
+                                            alive))
+        extra = tuple(None if t is None else t.detach() for t in (color, means2d_offset))
+        args = (cam_host, deg, width, height, near, low_pass)
+        out = preprocess_payload_fwd(*fields, opacity.detach(), feature.detach(), *args,
+                                     color=extra[0], means2d_offset=extra[1])
+        ctx.save_for_backward(*fields)
+        ctx.args = args
+        ctx.has = tuple(t is not None for t in extra)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(*out.screen)
+        return (out.rows, *out.screen)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_rows, *_):
+        if d_rows is None:
+            return (None,) * 16
+        g = preprocess_payload_bwd(*ctx.saved_tensors, d_rows.contiguous(), *ctx.args,
+                                   color=ctx.has[0], means2d_offset=ctx.has[1])
+        return (g.xyz, g.scale, g.quat, g.features_dc, g.features_rest, None, g.opacity,
+                g.feature, g.color, g.means2d_offset) + (None,) * 6
+
+
+def preprocess_payload(xyz, scale, quat, features_dc, features_rest, alive, opacity, feature,
+                       cam, sh_degree: int, *, color=None, means2d_offset=None,
+                       near: float = 0.2, low_pass: float = 0.3) -> Payload:
+    """One view's payload rows and binning record from the Gaussians' own
+    tensors: K1 (backward K4) on CUDA tensors, the plain version on CPU
+    tensors.
+
+    xyz [P, 3], scale [P, 3] (activated), quat [P, 4] (normalized),
+    features_dc [P, 1, 3], features_rest [P, >= (deg+1)^2 - 1, 3] (only the
+    first (deg+1)^2 - 1 coefficients are read), alive [P], opacity [P]
+    (activated), feature [P, 3]: f32, contiguous. ``color`` [P, 3] takes the
+    place of the SH colour; ``means2d_offset`` [P, 2] is added to the screen
+    centres (its gradient is the payload's mean2d gradient). ``cam`` may
+    live on the host: the kernels take it by value. The payload rows are
+    differentiable with respect to every field but alive."""
+    if not xyz.is_cuda:
+        return preprocess_payload_plain(xyz, scale, quat, features_dc, features_rest, alive,
+                                        opacity, feature, cam, sh_degree, color=color,
+                                        means2d_offset=means2d_offset, near=near,
+                                        low_pass=low_pass)
+    rows, *screen = _PreprocessPayload.apply(
+        xyz, scale, quat, features_dc, features_rest, alive, opacity, feature, color,
+        means2d_offset, _host_cam(_cam_vec(cam)), sh_degree, int(cam.width), int(cam.height),
+        float(near), float(low_pass))
+    return Payload(rows, Screen(*screen))

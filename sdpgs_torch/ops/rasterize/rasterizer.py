@@ -4,7 +4,8 @@ Counterpart of ``sdpgs_tpu/ops/rasterize/rasterizer.py``: the extended
 outputs the framework consumes (reference gaussian_renderer/__init__.py:
 315-326): color, expected depth, alpha, 3-channel feature image, radii,
 plus capacity telemetry. ``rasterize`` is differentiable: gradients flow
-through the payload (K3/K5 on CUDA); binning consumes detached geometry.
+through the payload rows (``payload.py``; K3/K5 on CUDA); binning consumes
+the detached screen record.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from sdpgs_torch.ops.rasterize.composite import (
     composite_tiles,
 )
 from sdpgs_torch.ops.rasterize.composite_cuda import composite_gather
-from sdpgs_torch.ops.rasterize.preprocess import Preprocessed, preprocess
+from sdpgs_torch.ops.rasterize.payload import Payload, make_payload, pad_row, screen_of
+from sdpgs_torch.ops.rasterize.preprocess import preprocess
 
 
 class RenderOutput(NamedTuple):
@@ -39,37 +41,19 @@ class RenderOutput(NamedTuple):
     tile_totals: torch.Tensor  # [T] int32 entries per tile before the K cap
 
 
-def _pad_row(a: torch.Tensor) -> torch.Tensor:
-    """Append one zero 'dead' row: binning sentinel index P points here."""
-    return torch.cat([a, torch.zeros_like(a[:1])], dim=0)
-
-
 def _check_device(device: torch.device, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t is not None and t.device.type != device.type:
             raise ValueError(f"input on {t.device}, render device is {device}")
 
 
-def make_payload(prep: Preprocessed, opacity, color, feature) -> torch.Tensor:
-    """The [P+1, 13] f32 rows the compositor gathers: mean2d xy, conic abc,
-    opacity*valid, rgb, depth, feature xyz; row P is the zero sentinel."""
-    return _pad_row(torch.cat([
-        prep.mean2d,                              # 0:2
-        prep.conic,                               # 2:5
-        (opacity * prep.valid)[:, None],          # 5
-        color,                                    # 6:9
-        prep.depth[:, None],                      # 9
-        feature,                                  # 10:13
-    ], dim=-1).to(torch.float32)).contiguous()
-
-
-def render_output(vals, final_t, bg, prep: Preprocessed, overflow, clipped, tile_counts,
+def render_output(vals, final_t, bg, radius, overflow, clipped, tile_counts,
                   tile_totals) -> RenderOutput:
     """The outputs of one view from its composited ``vals`` [H, W, 7] (rgb,
     expected depth, feature), final transmittance ``final_t`` [H, W] and
     background ``bg`` [3], the preprocess's radii and the binning telemetry."""
     bg = torch.as_tensor(bg, dtype=torch.float32, device=vals.device)
-    radii = prep.radius.detach()
+    radii = radius.detach()
     return RenderOutput(
         color=vals[..., :3] + final_t[..., None] * bg[None, None, :],
         depth=vals[..., 3],
@@ -84,79 +68,81 @@ def render_output(vals, final_t, bg, prep: Preprocessed, overflow, clipped, tile
     )
 
 
-def rasterize_tiles(
-    xyz, cov3d, opacity, color, feature, alive, cam: Camera, cfg: RasterizeConfig,
-    means2d_offset=None, feature_weight=None, prep: Optional[Preprocessed] = None,
-    tile_range: Optional[tuple[int, int]] = None,
-    payload_grad: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-) -> tuple[TileOutputs, binning_lib.Binning, Preprocessed]:
-    """Preprocess -> bin -> gather + composite for every tile, or with
-    ``tile_range=(t0, n_local)`` for the ``n_local`` tiles from flat tile
-    ``t0`` (a tile-sharded render's shard; JAX rasterizer.py:95-200).
-
-    ``prep``: precomputed screen-space quantities (the fused kernel K1,
-    ``preprocess_cuda.preprocess_color``); otherwise the plain preprocess
-    from ``cov3d``. ``payload_grad`` wraps the [P+1, 13] payload before the
-    compositing: the tile-sharded render passes the sum of its gradient over
-    the tile axis there."""
-    if prep is None:
-        prep = preprocess(xyz, cov3d, cam, alive, near=cfg.near, low_pass=cfg.low_pass)
-    mean2d = prep.mean2d
+def plain_payload(xyz, cov3d, opacity, color, feature, alive, cam: Camera,
+                  cfg: RasterizeConfig, means2d_offset=None, feature_weight=None) -> Payload:
+    """The payload of the plain preprocess from a world covariance ``cov3d``
+    [P, 3, 3] (the JAX package's XLA path; ``render`` takes K1's instead)."""
+    prep = preprocess(xyz, cov3d, cam, alive, near=cfg.near, low_pass=cfg.low_pass)
     if means2d_offset is not None:
-        mean2d = mean2d + means2d_offset
-    # binning consumes geometry only; gradients flow through the payload
-    bins = binning_lib.bin_gaussians(
-        Preprocessed(*(t.detach() for t in prep._replace(mean2d=mean2d))),
-        cam.width, cam.height, cfg, tile_range=tile_range)
+        prep = prep._replace(mean2d=prep.mean2d + means2d_offset)
     if feature_weight is not None:
         feature = feature * feature_weight[:, None]
-    payload = make_payload(prep._replace(mean2d=mean2d), opacity, color, feature)
+    return Payload(make_payload(prep, opacity, color, feature), screen_of(prep))
+
+
+def rasterize_tiles(
+    payload: Payload, cam: Camera, cfg: RasterizeConfig,
+    tile_range: Optional[tuple[int, int]] = None,
+    payload_grad: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> tuple[TileOutputs, binning_lib.Binning]:
+    """Bin -> gather + composite one view's ``payload`` for every tile, or
+    with ``tile_range=(t0, n_local)`` for the ``n_local`` tiles from flat
+    tile ``t0`` (a tile-sharded render's shard; JAX rasterizer.py:95-200).
+    ``payload_grad`` wraps the [P+1, 13] rows before the compositing: the
+    tile-sharded render passes the sum of their gradient over the tile axis
+    there."""
+    bins = binning_lib.bin_gaussians(payload.screen, cam.width, cam.height, cfg,
+                                     tile_range=tile_range)
+    rows = payload.rows
     if payload_grad is not None:
-        payload = payload_grad(payload)
+        rows = payload_grad(rows)
     tiles_x, tiles_y = binning_lib.tile_grid(cam.width, cam.height, cfg.tile)
-    out = composite_gather(payload, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
-                           xyz.shape[0], t0=0 if tile_range is None else tile_range[0],
+    out = composite_gather(rows, bins.tile_index, bins.tile_counts, tiles_x, tiles_y, cfg,
+                           rows.shape[0] - 1, t0=0 if tile_range is None else tile_range[0],
                            rects=bins.rects)
-    return out, bins, prep
+    return out, bins
 
 
 def rasterize(
-    xyz: torch.Tensor,          # [P, 3]
+    xyz: Optional[torch.Tensor],    # [P, 3]
     cov3d: Optional[torch.Tensor],  # [P, 3, 3] world covariance
-    opacity: torch.Tensor,      # [P] activated opacity (dead slots zero)
-    color: torch.Tensor,        # [P, 3] per-Gaussian RGB
-    feature: torch.Tensor,      # [P, 3] per-Gaussian language feature
-    alive: torch.Tensor,        # [P] float mask
+    opacity: Optional[torch.Tensor],  # [P] activated opacity (dead slots zero)
+    color: Optional[torch.Tensor],  # [P, 3] per-Gaussian RGB
+    feature: Optional[torch.Tensor],  # [P, 3] per-Gaussian language feature
+    alive: Optional[torch.Tensor],  # [P] float mask
     cam: Camera,
-    bg,                         # [3]
+    bg,                             # [3]
     cfg: RasterizeConfig,
     means2d_offset=None,
     feature_weight=None,
-    prep: Optional[Preprocessed] = None,
     device=None,
+    *,
+    payload: Optional[Payload] = None,
 ) -> RenderOutput:
     """Differentiable render of one view on ``device`` (``cuda`` unless the
-    caller asks for another); the inputs must already live there. ``prep``
-    (kernel K1's output) takes the place of the plain preprocess from
-    ``cov3d``; ``feature_weight`` scales the feature channels per Gaussian
-    (the reference's ``confidence``). ``means2d_offset`` [P, 2] (zeros) is
-    added to the screen centres: its gradient is the per-Gaussian
-    screen-space gradient the densification statistics read (reference
-    gaussian_renderer/__init__.py:217-221)."""
+    caller asks for another); the inputs must already live there.
+    ``payload`` (``preprocess_cuda.preprocess_payload``'s, as ``render``
+    passes it) takes the place of the plain preprocess from ``cov3d``, and
+    the per-Gaussian arguments are then not read; ``feature_weight`` scales
+    the feature channels per Gaussian (the reference's ``confidence``).
+    ``means2d_offset`` [P, 2] (zeros) is added to the screen centres: its
+    gradient is the per-Gaussian screen-space gradient the densification
+    statistics read (reference gaussian_renderer/__init__.py:217-221)."""
     dev = default_device(device)
-    _check_device(dev, xyz, opacity, color, feature, alive)
     cam = cam.to(dev)
-    out, bins, prep = rasterize_tiles(
-        xyz, cov3d, opacity, color, feature, alive, cam, cfg,
-        means2d_offset=means2d_offset, feature_weight=feature_weight,
-        prep=prep,
-    )
+    if payload is None:
+        _check_device(dev, xyz, opacity, color, feature, alive)
+        payload = plain_payload(xyz, cov3d, opacity, color, feature, alive, cam, cfg,
+                                means2d_offset=means2d_offset, feature_weight=feature_weight)
+    else:
+        _check_device(dev, payload.rows)
+    out, bins = rasterize_tiles(payload, cam, cfg)
     tiles_x, tiles_y = binning_lib.tile_grid(cam.width, cam.height, cfg.tile)
     H, W = cam.height, cam.width
     vals = assemble_image(out.values, tiles_x, tiles_y, cfg.tile, H, W)
     final_t = assemble_image(out.final_t[..., None], tiles_x, tiles_y, cfg.tile, H, W)[..., 0]
-    return render_output(vals, final_t, bg, prep, bins.overflow, bins.clipped, bins.tile_counts,
-                         bins.tile_totals)
+    return render_output(vals, final_t, bg, payload.screen.radius, bins.overflow,
+                         bins.clipped, bins.tile_counts, bins.tile_totals)
 
 
 @torch.no_grad()
@@ -184,11 +170,11 @@ def rasterize_naive(xyz, cov3d, opacity, color, feature, alive, cam: Camera, bg,
     ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
                             torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
     out = composite_tiles(
-        _pad_row(prep.mean2d)[idx], _pad_row(prep.conic)[idx],
-        _pad_row(opacity * prep.valid)[idx], _pad_row(values)[idx],
-        xs.reshape(1, -1), ys.reshape(1, -1), cfg, rect=_pad_row(rect)[idx],
+        pad_row(prep.mean2d)[idx], pad_row(prep.conic)[idx],
+        pad_row(opacity * prep.valid)[idx], pad_row(values)[idx],
+        xs.reshape(1, -1), ys.reshape(1, -1), cfg, rect=pad_row(rect)[idx],
     )
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     no_table = torch.zeros((0,), dtype=torch.int32, device=dev)
-    return render_output(out.values.reshape(H, W, -1), out.final_t.reshape(H, W), bg, prep,
-                         zero, zero, no_table, no_table)
+    return render_output(out.values.reshape(H, W, -1), out.final_t.reshape(H, W), bg,
+                         prep.radius, zero, zero, no_table, no_table)

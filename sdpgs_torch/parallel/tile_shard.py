@@ -26,35 +26,21 @@ the densification statistics take its norm.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from sdpgs_torch.config import RasterizeConfig
 from sdpgs_torch.core.camera import Camera
 from sdpgs_torch.ops.rasterize import binning as binning_lib
 from sdpgs_torch.ops.rasterize.composite import assemble_image
-from sdpgs_torch.ops.rasterize.preprocess import Preprocessed
+from sdpgs_torch.ops.rasterize.payload import Payload
 from sdpgs_torch.ops.rasterize.rasterizer import RenderOutput, rasterize_tiles, render_output
 from sdpgs_torch.parallel import comm
 from sdpgs_torch.parallel.mesh import Mesh
 
 
-def rasterize_tile_sharded(
-    xyz: torch.Tensor,
-    opacity: torch.Tensor,
-    color: torch.Tensor,
-    feature: torch.Tensor,
-    alive: torch.Tensor,
-    cam: Camera,
-    bg,
-    cfg: RasterizeConfig,
-    mesh: Mesh,
-    prep: Preprocessed,
-    means2d_offset: Optional[torch.Tensor] = None,
-    feature_weight: Optional[torch.Tensor] = None,
-) -> RenderOutput:
-    """Differentiable render of one view from K1's ``prep`` with the tile
+def rasterize_tile_sharded(payload: Payload, cam: Camera, bg, cfg: RasterizeConfig,
+                           mesh: Mesh) -> RenderOutput:
+    """Differentiable render of one view from K1's ``payload`` with the tile
     grid sharded over ``mesh``'s ``tile`` axis (``render(...,
     tile_mesh=mesh)`` calls it); the same outputs as ``rasterize`` on every
     rank of the axis: overflow summed over the shards, clipped and radii
@@ -66,16 +52,14 @@ def rasterize_tile_sharded(
     tiles_x, tiles_y = binning_lib.tile_grid(cam.width, cam.height, cfg.tile)
     num_tiles = tiles_x * tiles_y
     n_local = -(-num_tiles // n)
-    cam = cam.to(xyz.device)
-    out, bins, prep = rasterize_tiles(
-        xyz, None, opacity, color, feature, alive, cam, cfg,
-        means2d_offset=means2d_offset, feature_weight=feature_weight, prep=prep,
-        tile_range=(index * n_local, n_local),
-        payload_grad=lambda payload: comm.sum_grad(payload, group))
+    cam = cam.to(payload.rows.device)
+    out, bins = rasterize_tiles(
+        payload, cam, cfg, tile_range=(index * n_local, n_local),
+        payload_grad=lambda rows: comm.sum_grad(rows, group))
     # one gather of the shard's 7 channels and final transmittance
     local = torch.cat([out.values, out.final_t[..., None]], dim=-1)
     tiles = comm.gather_tiles(local, group)[:num_tiles]
     img = assemble_image(tiles, tiles_x, tiles_y, cfg.tile, cam.height, cam.width)
     overflow = comm.all_sum(bins.overflow.clone(), group)
-    return render_output(img[..., :7], img[..., 7], bg, prep, overflow, bins.clipped,
-                         bins.tile_counts, bins.tile_totals)
+    return render_output(img[..., :7], img[..., 7], bg, payload.screen.radius, overflow,
+                         bins.clipped, bins.tile_counts, bins.tile_totals)

@@ -28,8 +28,8 @@ import torch
 
 from sdpgs_torch.config import RasterizeConfig
 from sdpgs_torch.ops.rasterize import binning, composite, composite_cuda
+from sdpgs_torch.ops.rasterize.payload import make_payload
 from sdpgs_torch.ops.rasterize.preprocess import Preprocessed
-from sdpgs_torch.ops.rasterize.rasterizer import make_payload
 from torch_threads import few_threads  # noqa: F401  (autouse)
 
 CSRC = Path(__file__).resolve().parents[1] / "sdpgs_torch" / "csrc"

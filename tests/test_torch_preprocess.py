@@ -1,4 +1,5 @@
-"""The port's preprocess + SH (plain version of kernel K1, and the plain
+"""The port's preprocess + SH (the payload entry's plain version of kernel
+K1, read back from its payload columns and binning record, and the plain
 preprocess paths) against sdpgs_tpu: XLA preprocess_fused + colors_from_sh
 and the Pallas preprocess kernel in interpret mode. valid and radius must
 be identical; float rows agree to rtol 1e-5."""
@@ -16,6 +17,7 @@ from sdpgs_tpu.ops.rasterize.preprocess_pallas import preprocess_color_pallas
 from sdpgs_torch import _kernels
 from sdpgs_torch.core.camera import Camera as TCamera
 from sdpgs_torch.core.transforms import build_covariance_3d as t_cov3d
+from sdpgs_torch.ops.rasterize import payload
 from sdpgs_torch.ops.rasterize import preprocess as tpre
 from sdpgs_torch.ops.rasterize import preprocess_cuda
 
@@ -38,9 +40,18 @@ def inputs(rng):
 
 
 def torch_rows(inputs, deg):
+    """The entry's payload and binning record as (Preprocessed, color)."""
     xyz, scale, quat, features, alive = (torch.from_numpy(a) for a in inputs)
     cam = TCamera.create(**CAM, device="cpu")
-    return preprocess_cuda.preprocess_color(xyz, scale, quat, features, alive, cam, deg)
+    pay = preprocess_cuda.preprocess_payload(
+        xyz, scale, quat, features[:, :1].contiguous(), features[:, 1:].contiguous(), alive,
+        torch.ones(P), torch.zeros((P, 3)), cam, deg)
+    rows, screen = pay.rows[:P], pay.screen
+    np.testing.assert_array_equal(rows[:, payload.MEAN2D].numpy(), screen.mean2d.numpy())
+    np.testing.assert_array_equal(rows[:, payload.DEPTH].numpy(), screen.depth.numpy())
+    prep = tpre.Preprocessed(valid=screen.valid, mean2d=screen.mean2d, depth=screen.depth,
+                             conic=rows[:, payload.CONIC], radius=screen.radius)
+    return prep, rows[:, payload.RGB]
 
 
 def assert_prep_matches(prep, color, ref_prep, ref_color):

@@ -1,5 +1,5 @@
-"""Gradients of the port's preprocess + SH (autograd through the plain
-version of K1, which is the plain version of K4) against sdpgs_tpu: the
+"""Gradients of the port's preprocess + SH (autograd through the payload
+entry's plain version of K1, which is the plain version of K4) against sdpgs_tpu: the
 vjp of the Pallas kernel pair in interpret mode (preprocess_pallas.py:
 251-281, a traced jax.vjp of the same row math) and JAX autodiff of the XLA
 path (preprocess_fused + colors_from_sh). Inputs hold Gaussians behind the
@@ -19,7 +19,7 @@ from sdpgs_tpu.ops.rasterize import preprocess as jpre
 from sdpgs_tpu.ops.rasterize.preprocess_pallas import preprocess_color_pallas
 from sdpgs_torch import _kernels
 from sdpgs_torch.core.camera import Camera as TCamera
-from sdpgs_torch.ops.rasterize import preprocess_cuda
+from sdpgs_torch.ops.rasterize import payload, preprocess_cuda
 
 P = 512
 CAM = dict(R=np.eye(3), T=np.array([0.05, -0.02, 0.0]), fovx=0.9, fovy=0.7,
@@ -50,12 +50,18 @@ def _loss_terms(mean2d, depth, conic, color, cot):
 
 
 def port_grads(inputs, deg):
+    """Autograd through the payload entry's plain version; the features'
+    gradient as one [P, 16, 3] (dc, then rest)."""
     xyz, scale, quat, features, alive, cot = (torch.from_numpy(a) for a in inputs)
-    args = [t.clone().requires_grad_() for t in (xyz, scale, quat, features)]
+    args = [t.clone().requires_grad_() for t in (xyz, scale, quat, features[:, :1],
+                                                 features[:, 1:])]
     cam = TCamera.create(**CAM, device="cpu")
-    prep, color = preprocess_cuda.preprocess_color(*args, alive, cam, deg)
-    _loss_terms(prep.mean2d, prep.depth, prep.conic, color, cot).backward()
-    return [a.grad.numpy() for a in args]
+    rows = preprocess_cuda.preprocess_payload(*args, alive, torch.ones(P), torch.zeros((P, 3)),
+                                              cam, deg).rows[:P]
+    _loss_terms(rows[:, payload.MEAN2D], rows[:, payload.DEPTH], rows[:, payload.CONIC],
+                rows[:, payload.RGB], cot).backward()
+    grads = [a.grad.numpy() for a in args]
+    return grads[:3] + [np.concatenate(grads[3:], axis=1)]
 
 
 def assert_grads_match(got, ref):
@@ -97,40 +103,52 @@ def test_grads_match_xla_autodiff(inputs, deg):
     assert_grads_match(port_grads(inputs, deg), ref)
 
 
+def plain_k4(inputs, d_rows):
+    """The plain version of K4 at payload gradient ``d_rows`` [P+1, 13]."""
+    xyz, scale, quat, features, alive, _ = (torch.from_numpy(a) for a in inputs)
+    return preprocess_cuda.preprocess_payload_vjp_plain(
+        xyz, scale, quat, features[:, :1].contiguous(), features[:, 1:].contiguous(), alive,
+        d_rows, TCamera.create(**CAM, device="cpu"), 3)
+
+
 def test_color_gradient_reaches_xyz(inputs):
-    """Cotangents on the rgb rows alone still move xyz, through the
+    """Cotangents on the rgb columns alone still move xyz, through the
     normalized SH view direction; a clamped channel passes none."""
-    xyz, scale, quat, features, alive, _ = inputs
+    d_rows = torch.zeros((P + 1, payload.NPAY))
+    d_rows[:, payload.RGB] = 1.0
+    g = plain_k4(inputs, d_rows)
+    moved = g.xyz.abs().sum(dim=1) > 0
     geoT, shT = preprocess_cuda.pack_rows(*(torch.from_numpy(a) for a in inputs[:5]), 3)
     cam_vec = preprocess_cuda._cam_vec(TCamera.create(**CAM, device="cpu"))
-    ct = torch.zeros((preprocess_cuda.NOUT, P))
-    ct[8:11] = 1.0
-    dgeo, dsh = preprocess_cuda.preprocess_vjp_plain(geoT, shT, cam_vec, ct, 3, 96, 64)
-    moved = dgeo[0:3].abs().sum(dim=0) > 0
     rows = torch.stack(preprocess_cuda._row_math(geoT, shT, cam_vec, deg=3, width=96,
                                                  height=64, near=0.2, low_pass=0.3))
     lit = (rows[8:11] > 0).any(dim=0)
     assert bool(torch.equal(moved, lit))
-    assert float(dgeo[3:10].abs().max()) == 0.0     # colour does not depend on scale/quat
+    # colour does not depend on scale or the quaternion
+    assert float(g.scale.abs().max()) == 0.0 and float(g.quat.abs().max()) == 0.0
     assert not bool((rows[8:11] > 0).all())         # some channels are clamped
 
 
 def test_plain_vjp_and_masks(inputs):
-    """preprocess_vjp_plain is autograd's vjp of the rows, and
-    row_masks_plain reports the step functions the inputs straddle."""
-    geoT, shT = preprocess_cuda.pack_rows(*(torch.from_numpy(a) for a in inputs[:5]), 3)
-    cam_vec = preprocess_cuda._cam_vec(TCamera.create(**CAM, device="cpu"))
-    ct = torch.from_numpy(np.random.default_rng(3).normal(
-        size=(preprocess_cuda.NOUT, P)).astype(np.float32))
+    """The plain K4 is autograd's gradient through the payload entry's plain
+    version, and row_masks_plain reports the step functions the inputs
+    straddle."""
+    d_rows = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(P + 1, payload.NPAY)).astype(np.float32))
     _kernels.reset_counts()
-    dgeo, dsh = preprocess_cuda.preprocess_vjp_plain(geoT, shT, cam_vec, ct, 3, 96, 64)
+    g = plain_k4(inputs, d_rows)
     assert _kernels.PLAIN_CALLS["preprocess_bwd"] == 1
-    g, s = geoT.clone().requires_grad_(), shT.clone().requires_grad_()
-    rows = preprocess_cuda.preprocess_rows(g, s, cam_vec, 3, 96, 64)
-    (rows * ct).sum().backward()
-    np.testing.assert_array_equal(dgeo.numpy(), g.grad.numpy())
-    np.testing.assert_array_equal(dsh.numpy(), s.grad.numpy())
-    assert float(dgeo[10].abs().max()) == 0.0       # alive carries no gradient
+    xyz, scale, quat, features, alive, _ = (torch.from_numpy(a) for a in inputs)
+    leaves = [t.clone().requires_grad_() for t in (xyz, scale, quat, features[:, :1],
+                                                   features[:, 1:])]
+    cam = TCamera.create(**CAM, device="cpu")
+    rows = preprocess_cuda.preprocess_payload(*leaves, alive, torch.ones(P), torch.zeros((P, 3)),
+                                              cam, 3).rows
+    (rows * d_rows).sum().backward()
+    for got, leaf in zip((g.xyz, g.scale, g.quat, g.features_dc, g.features_rest), leaves):
+        np.testing.assert_array_equal(got.numpy(), leaf.grad.numpy())
+    geoT, shT = preprocess_cuda.pack_rows(*(torch.from_numpy(a) for a in inputs[:5]), 3)
+    cam_vec = preprocess_cuda._cam_vec(cam)
     word = preprocess_cuda.row_masks_plain(geoT, shT, cam_vec, 3, 96, 64)
     clip = preprocess_cuda.MASK_CLIP_X
     rgb0 = preprocess_cuda.MASK_RGB0

@@ -29,7 +29,7 @@ from sdpgs_torch.ops.rasterize import binning as tbin
 from sdpgs_torch.ops.rasterize import composite as tcomp
 from sdpgs_torch.ops.rasterize import composite_cuda, rasterizer
 from sdpgs_torch.ops.rasterize.preprocess import Preprocessed as TPrep
-from sdpgs_torch.ops.rasterize.preprocess_cuda import preprocess_color
+from sdpgs_torch.ops.rasterize.preprocess_cuda import preprocess_payload
 from test_torch_binning import CASES, make_prep
 from test_torch_core import random_arrays
 
@@ -100,32 +100,31 @@ def scene():
     cam = Camera.create(R=np.eye(3), T=np.array([0.05, -0.02, 0.0]), fovx=0.9, fovy=0.7,
                         width=72, height=56, device="cpu")
     cfg = TConfig(tile=16, max_per_tile=64, max_tiles_per_gaussian=8, chunk=32)
-    prep, color = preprocess_color(g.xyz, g.get_scaling(), g.get_rotation(), g.get_features(),
-                                   g.alive, cam, 3, near=cfg.near, low_pass=cfg.low_pass)
-    args = (g.xyz.detach(), None, g.get_opacity()[:, 0].detach(), color.detach(),
-            g.language_feature_normalized().detach(), g.alive, cam, cfg)
-    prep = TPrep(*(t.detach() for t in prep))
-    return dict(args=args, prep=prep, cfg=cfg, rng=rng)
+    with torch.no_grad():
+        pay = preprocess_payload(g.xyz, g.get_scaling(), g.get_rotation(), g.features_dc,
+                                 g.features_rest, g.alive, g.get_opacity()[:, 0],
+                                 g.language_feature_normalized(), cam, 3, near=cfg.near,
+                                 low_pass=cfg.low_pass)
+    return dict(cam=cam, payload=pay, cfg=cfg, rng=rng)
 
 
 @pytest.mark.parametrize("n", [2, 3, 7])
 def test_rasterize_tiles_range_rows(scene, n):
-    args, prep, cfg = scene["args"], scene["prep"], scene["cfg"]
-    cam = args[6]
-    whole, whole_bins, _ = rasterizer.rasterize_tiles(*args, prep=prep)
+    cam, pay, cfg = scene["cam"], scene["payload"], scene["cfg"]
+    whole, whole_bins = rasterizer.rasterize_tiles(pay, cam, cfg)
     tiles_x, tiles_y = tbin.tile_grid(cam.width, cam.height, cfg.tile)
     num_tiles = tiles_x * tiles_y
     g_values = torch.from_numpy(scene["rng"].normal(size=tuple(whole.values.shape))
                                 .astype(np.float32))
     g_final_t = torch.from_numpy(scene["rng"].normal(size=tuple(whole.final_t.shape))
                                  .astype(np.float32))
-    payload = rasterizer.make_payload(prep, args[2], args[3], args[4])
+    payload = pay.rows
     d_whole = composite_cuda.composite_vjp_plain(
         payload, whole_bins.tile_index, whole_bins.tile_counts, tiles_x, tiles_y, cfg,
         payload.shape[0] - 1, g_values, g_final_t)
     d_sum = torch.zeros_like(d_whole)
     for t0, n_local in shard_ranges(num_tiles, n):
-        out, bins, _ = rasterizer.rasterize_tiles(*args, prep=prep, tile_range=(t0, n_local))
+        out, bins = rasterizer.rasterize_tiles(pay, cam, cfg, tile_range=(t0, n_local))
         inside = max(0, min(n_local, num_tiles - t0))
         np.testing.assert_array_equal(out.values[:inside].numpy(),
                                       whole.values[t0:t0 + inside].numpy())
