@@ -22,7 +22,8 @@ followed by the reference from the same state and inputs):
   norms of the difference (``train_cell.net_readings``);
 - ``densify_slots``, ``densify_gap`` (a densify event in set-up): the
   program's state after the first event past the checked steps against
-  the reference event's from the program's state before it
+  the reference event's from the program's state before it, with FSGS's
+  proximity rule where the event comes before ``proximity_until_iter``
   (``reference/densify.readings``).
 A cell compares the numbers its limits name; one that a run did not
 read fails.

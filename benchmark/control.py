@@ -9,12 +9,15 @@ place:
   tile left out: black, depth and feature zero);
 - ``no_pseudo`` (cells with pseudo iterations): the pseudo view's half of
   each step's batch left out;
-- ``densify_frozen``, ``densify_unmoved`` (cells with a densify event
-  in set-up): the event's state left as it was before it, and the event
-  with its split children left on their sources (no offset), each
-  against the reference event from a state made from the seed (the
-  trainee, moments and statistics drawn so that some 2% of the alive
-  Gaussians densify); the control reads that event one precision below;
+- ``densify_frozen``, ``densify_unmoved``, ``proximity_skipped`` (cells
+  with a densify event in set-up; the last where the event comes before
+  ``proximity_until_iter``): the event's state left as it was before it,
+  the event with its split children left on their sources (no offset),
+  and the event without the proximity rule, each against the reference
+  event from a state made from the seed (the trainee, moments and
+  statistics drawn so that some 2% of the alive Gaussians densify, a
+  quarter of the Gaussians at least twice the split size); the control
+  reads that event one precision below;
 - ``jitter`` (cells with pseudo iterations, a witness and no fault): the
   reference itself with every render's colour moved by one part in a
   million, the size of the compositor's rounding, to read how far the
@@ -81,7 +84,9 @@ def jitter(seed: int):
 def densify_before(sc, cfg: dict, seed: int, dev) -> dict:
     """A state to densify from, made from the seed: the trainee, moments,
     and statistics whose mean gradient reaches the threshold on about 2%
-    of the alive Gaussians."""
+    of the alive Gaussians, a quarter of which are above the split size."""
+    import math
+
     import torch
 
     from benchmark.reference.raster import FIELDS
@@ -100,11 +105,17 @@ def densify_before(sc, cfg: dict, seed: int, dev) -> dict:
     state["denom"] = 100.0 * alive
     state["accum"] = (cfg["optim"]["densify_grad_threshold"] * torch.exp(0.5 * z - 1.0)
                       * state["denom"])
+    # a quarter of them at least twice the split size on every axis, so
+    # that the event splits some wherever the trainee's scales lie below it
+    floor = math.log(2.0 * cfg["optim"]["percent_dense"] * sc.extent)
+    grown = torch.rand(alive.shape, generator=gen, device=dev) < 0.25
+    state["scaling"] = torch.where(grown[:, None], state["scaling"].clamp_min(floor),
+                                   state["scaling"])
     state["generator"] = generator(seed + 2, dev).get_state()
     return state
 
 
-def densify_modes(sc, cfg: dict, seed: int, dev) -> dict:
+def densify_modes(sc, cfg: dict, seed: int, dev, iteration: int) -> dict:
     import torch
 
     from benchmark.reference import densify as ref_densify
@@ -113,17 +124,23 @@ def densify_modes(sc, cfg: dict, seed: int, dev) -> dict:
     before = densify_before(sc, cfg, seed, dev)
 
     def judged(after):
-        return densify_readings({"before": before, "after": after}, cfg, sc.extent, dev)
+        return densify_readings({"before": before, "after": after, "iteration": iteration},
+                                cfg, sc.extent, dev)
 
-    out = {"control": judged(reference_event(before, cfg, sc.extent, dev, control=True)),
+    def event(**kw):
+        return reference_event(before, cfg, sc.extent, dev, iteration, **kw)
+
+    out = {"control": judged(event(control=True)),
            "densify_frozen": judged({k: v for k, v in before.items() if k != "generator"})}
     real = ref_densify.rotation
     ref_densify.rotation = lambda q: torch.zeros(q.shape[:-1] + (3, 3), device=q.device)
     try:
-        unmoved = reference_event(before, cfg, sc.extent, dev)
+        unmoved = event()
     finally:
         ref_densify.rotation = real
     out["densify_unmoved"] = judged(unmoved)
+    if iteration < cfg["optim"]["proximity_until_iter"]:
+        out["proximity_skipped"] = judged(event(proximity=False))
     return out
 
 
@@ -154,8 +171,9 @@ def train_readings(cell, seed: int, dev) -> dict:
     if pseudo:
         out["control"].update(net_readings(ref["net_seen"], cfg, weights, dev, control=True))
     warm_end = -(-(start + CHECKED - 1) // CHUNK) * CHUNK
-    if events_in(cfg["optim"], start + CHECKED, warm_end):
-        modes = densify_modes(sc, cfg, seed, dev)
+    events = events_in(cfg["optim"], start + CHECKED, warm_end)
+    if events:
+        modes = densify_modes(sc, cfg, seed, dev, events[0])
         out["control"].update(modes.pop("control"))
         out.update(modes)
     if pseudo:

@@ -8,14 +8,19 @@ the configuration file), and it observes the Trainer from a subclass, the
 pattern of ``sdpgs_torch/cli/ablation_run.instrumented``: the first
 steps' inputs, losses and moments for the check, and, in a traced run,
 synchronised brackets around densify events, pseudo-camera prefetches and
-the depth net, and the state around one densify event and one call of the
-depth net for the check. The program surface this reads: ``Trainer._step_fn``,
-``_maybe_densify``, ``_next_pseudo_reproj``, ``_reproj_queue`` and
-``state``.
+the depth net (and the k-NN inside an event, through the module global
+``sdpgs_torch.train.loop.knn``), and the state around one densify event
+and one call of the depth net for the check. ``Rewind`` puts a Trainer
+back where it was, for a window that cycles inside a schedule range. The
+program surface this reads: ``Trainer._step_fn``, ``_maybe_densify``,
+``_next_pseudo_reproj``, ``_reproj_queue``, ``_rng``, ``_view_stack``,
+``_pseudo_stack``, ``_renders``, ``_steps``, ``cfg.raster``, ``state``
+and ``loop.knn``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -217,6 +222,55 @@ def densify_state(state, generator: bool = False) -> dict:
     return out
 
 
+def device_tensors(state) -> dict:
+    """Every device tensor of a ``TrainState`` by name: the Gaussians'
+    fields, Adam's moments, the densify statistics, the telemetry's running
+    maxima and the raster counters."""
+    g, opt = state.gaussians, state.opt_state
+    out = {f"g.{k}": getattr(g, k) for k in FIELDS + ("confidence", "alive")}
+    out.update({f"mu.{k}": v for k, v in opt.mu.items()})
+    out.update({f"nu.{k}": v for k, v in opt.nu.items()})
+    out.update({f"stats.{k}": getattr(state.stats, k) for k in
+                ("xyz_gradient_accum", "denom", "max_radii2d")})
+    out.update({k: getattr(state, k) for k in ("max_overflow", "max_clipped",
+                                               "raster_entries", "raster_tile_max")})
+    return out
+
+
+class Rewind:
+    """A Trainer as it stands, to put it back there: a copy on the device
+    of every tensor of its state, the state's step counters and
+    generator, and the host state that picks views and pseudo cameras
+    (``_rng``, ``_view_stack``, ``_pseudo_stack``, ``_reproj_queue``, whose
+    tensors no step writes), the render count and the ladder's rung."""
+
+    def __init__(self, trainer):
+        s = trainer.state
+        self.tensors = {k: v.detach().clone() for k, v in device_tensors(s).items()}
+        self.steps = (s.step, s.opt_state.step)
+        self.generator = s.generator.get_state()
+        self.rng = trainer._rng.bit_generator.state
+        self.stacks = (list(trainer._view_stack), list(trainer._pseudo_stack),
+                       list(trainer._reproj_queue))
+        self.renders = trainer._renders
+        self.raster = trainer.cfg.raster
+
+    @torch.no_grad()
+    def apply(self, trainer) -> None:
+        s = trainer.state
+        for k, v in device_tensors(s).items():
+            v.copy_(self.tensors[k])
+        s.step, s.opt_state.step = self.steps
+        s.generator.set_state(self.generator)
+        trainer._rng.bit_generator.state = self.rng
+        trainer._view_stack, trainer._pseudo_stack, trainer._reproj_queue = (
+            list(x) for x in self.stacks)
+        trainer._renders = self.renders
+        if trainer.cfg.raster != self.raster:
+            trainer.cfg.raster = self.raster
+            trainer._steps.clear()
+
+
 @dataclasses.dataclass
 class Recorded:
     view: int
@@ -230,6 +284,7 @@ def bench_trainer(traced: bool):
     brackets its events."""
     from torch.profiler import record_function
 
+    from sdpgs_torch.train import loop
     from sdpgs_torch.train.loop import Trainer
 
     class BenchTrainer(Trainer):
@@ -240,7 +295,7 @@ def bench_trainer(traced: bool):
             self.bracketing = traced    # synchronised brackets around events
             self.densify_tap = False    # record the next densify event in densify_seen
             self.densify_seen = None    # {"before", "after"}: densify_state around it
-            self.brackets = {"densify": [], "prefetch": [], "prefetch_cams": []}
+            self.brackets = {"densify": [], "knn": [], "prefetch": [], "prefetch_cams": []}
             super().__init__(*a, **kw)
 
         def _step_fn(self, sh_degree, with_pseudo):
@@ -272,7 +327,7 @@ def bench_trainer(traced: bool):
             if not self.bracketing:
                 info = super()._maybe_densify(iteration)
             else:
-                with record_function("bench.densify"):
+                with record_function("bench.densify"), self.timed_knn():
                     t0 = sync(self.device)
                     info = super()._maybe_densify(iteration)
                     if info is not None:
@@ -282,6 +337,24 @@ def bench_trainer(traced: bool):
                 self.densify_seen = {"iteration": iteration, "before": before,
                                      "after": densify_state(self.state)}
             return info
+
+        @contextlib.contextmanager
+        def timed_knn(self):
+            """The event's k-NN behind a synchronised bracket."""
+            real = loop.knn
+
+            def knn(*a, **kw):
+                with record_function("bench.knn"):
+                    t0 = sync(self.device)
+                    out = real(*a, **kw)
+                    self.brackets["knn"].append((sync(self.device) - t0) * 1e3)
+                return out
+
+            loop.knn = knn
+            try:
+                yield
+            finally:
+                loop.knn = real
 
         def _next_pseudo_reproj(self):
             if not self.bracketing or self._reproj_queue:

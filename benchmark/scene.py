@@ -4,6 +4,10 @@ reference's rasterizer), the segment prototypes, the trainee (the hidden
 cloud perturbed), the pseudo cameras, the DPT's weights and the render
 path.
 
+A configuration with ``cloud.isolated`` also holds that many large
+Gaussians far behind the cameras, in groups of four whose corners meet
+FSGS's proximity rule (``add_isolated``); the others draw nothing more.
+
 The clouds and weights are drawn on the device with one ``torch.Generator``
 in a few large calls; the cameras and poses in numpy from the same seed.
 The cloud recipe is ``chip_smoke.py``'s ``make_cloud`` and ``perturb``;
@@ -111,6 +115,62 @@ def perturb(hidden: dict, gen: torch.Generator, n: int) -> dict:
     return out
 
 
+# The isolated Gaussians come in groups of four, the corners of this
+# tetrahedron (edge 1): its six edges all differ, so each corner's three
+# nearest neighbours are the other three at squared distances at least 0.11
+# apart, and their mean is 1.88-2.84 (edges squared: AB 1.21, AC 1.78,
+# BC 2.33, AD 2.66, BD 2.77, CD 3.10).
+TETRAHEDRON = np.array([[0.0, 0.0, 0.0], [1.1, 0.0, 0.0], [0.3, 1.3, 0.0], [0.5, 0.4, 1.5]])
+
+
+def isolated_positions(spec: dict, rng: np.random.Generator) -> np.ndarray:
+    """[count, 3] centres: ``count / 4`` tetrahedra of edge ``edge``, each
+    turned at random about its centroid, their centroids ``spacing`` apart
+    on the smallest cubic grid around ``center`` that holds them, moved by
+    up to a tenth of the spacing. A corner's three nearest neighbours are
+    its own group's other corners; the next lies in another group, over
+    0.8 ``spacing`` - 2.3 ``edge`` away (corners lie within 1.13 ``edge``
+    of their centroid)."""
+    groups = spec["count"] // 4
+    if groups * 4 != spec["count"]:
+        raise ValueError("cloud.isolated.count must be a multiple of 4")
+    side = int(np.ceil(groups ** (1.0 / 3.0) - 1e-9))
+    axis = (np.arange(side) - (side - 1) / 2.0) * spec["spacing"]
+    grid = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)[:groups]
+    grid = grid + np.asarray(spec["center"], np.float64)
+    grid += rng.uniform(-0.1, 0.1, (groups, 3)) * spec["spacing"]
+    shape = (TETRAHEDRON - TETRAHEDRON.mean(0)) * spec["edge"]
+    turns = np.linalg.qr(rng.standard_normal((groups, 3, 3)))[0]
+    return (grid[:, None, :] + np.einsum("gij,kj->gki", turns, shape)).reshape(-1, 3)
+
+
+@torch.no_grad()
+def add_isolated(hidden: dict, trainee: dict, spec: dict, n: int, protos,
+                 gen: torch.Generator, rng: np.random.Generator) -> None:
+    """Write ``spec["count"]`` large Gaussians (``cloud.isolated``) into
+    the last live slots of both clouds, the same in each: at
+    ``isolated_positions``, scales log-normal around ``spec["scale"]``,
+    opaque, coloured and labelled at random."""
+    m = spec["count"]
+    dev = hidden["xyz"].device
+    f32 = dict(generator=gen, device=dev, dtype=torch.float32)
+    K1 = hidden["features_rest"].shape[1]
+    quat = torch.randn((m, 4), **f32)
+    fields = dict(
+        xyz=torch.from_numpy(isolated_positions(spec, rng)).to(dev, torch.float32),
+        features_dc=(torch.rand((m, 1, 3), **f32) - 0.5) / C0,
+        features_rest=torch.randn((m, K1, 3), **f32) * 0.05,
+        scaling=float(np.log(spec["scale"])) + torch.randn((m, 3), **f32) * spec["scale_sd"],
+        rotation=quat / quat.norm(dim=-1, keepdim=True),
+        opacity=torch.rand((m, 1), **f32) * 2.0 + 1.0,
+        language_feature=protos[torch.randint(0, protos.shape[0], (m,), generator=gen,
+                                              device=dev)],
+    )
+    for cloud in (hidden, trainee):
+        for k, v in fields.items():
+            cloud[k][n - m:n] = v
+
+
 def train_views(layout: dict, size: dict, rng: np.random.Generator) -> list:
     """Forward-facing views on a short baseline (LLFF), or a ring of views
     looking at the centre (mip-NeRF 360)."""
@@ -152,6 +212,8 @@ def build(cfg: dict, seed: int, device, with_pseudo: bool) -> Scene:
     hidden = make_cloud(gen, cloud, layout, S, protos, device)
     trainee = perturb(hidden, gen, cloud["alive"])
     views = train_views(layout, size, rng)
+    if "isolated" in cloud:
+        add_isolated(hidden, trainee, cloud["isolated"], cloud["alive"], protos, gen, rng)
     raster = raster_of(cfg)
     bg = torch.zeros(3, device=device)
     params = {k: hidden[k] for k in FIELDS}

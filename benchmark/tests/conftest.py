@@ -51,7 +51,8 @@ def few_threads():
 def make_small(dest: Path) -> Path:
     """A copy of BENCHMARK.json and the benchmark's data files under
     ``dest`` with every configuration cut to 64x48, 2,048 slots, 512
-    alive, tile 16 and a tiny depth net; returns ``dest/benchmark``."""
+    alive (32 of them isolated where a configuration has such), tile 16
+    and a tiny depth net; returns ``dest/benchmark``."""
     bench = dest / "benchmark"
     bench.mkdir(parents=True)
     for d in ("configs", "traffic", "limits"):
@@ -61,6 +62,8 @@ def make_small(dest: Path) -> Path:
         c = json.loads(p.read_text())
         c["image"].update(width=64, height=48)
         c["cloud"].update(capacity=2048, alive=512)
+        if "isolated" in c["cloud"]:
+            c["cloud"]["isolated"]["count"] = 32
         c["raster"].update(tile=16, max_per_tile=128, max_tiles_per_gaussian=8, chunk=32)
         if "n_pseudo" in c["layout"]:
             c["layout"]["n_pseudo"] = 128

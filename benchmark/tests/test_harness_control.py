@@ -9,7 +9,7 @@ import torch
 
 from benchmark import check, control, spec
 
-CELLS = ("llff-train-pseudo", "m360-train-plain", "llff-render")
+CELLS = ("llff-train-pseudo", "m360-train-plain", "llff-render", "llff-train-early")
 
 
 def verdicts(cell, seed: int, dev) -> dict:
@@ -27,6 +27,8 @@ def verdicts(cell, seed: int, dev) -> dict:
 def test_control_fails_at_a_small_size(small_bench, name):
     v = verdicts(spec.load_cell(name, root=small_bench), 3, torch.device("cpu"))
     assert set(v) >= {"control", "altered"} and not any(v.values()), v
+    if name == "llff-train-early":
+        assert set(v) >= {"densify_frozen", "densify_unmoved", "proximity_skipped"}, v
 
 
 @pytest.mark.card

@@ -71,25 +71,46 @@ def test_a_new_cell_and_metric_are_files_only(tmp_path):
     before = {p: p.read_bytes() for p in (copy / "benchmark").rglob("*") if p.is_file()}
 
     b = json.loads((copy / "BENCHMARK.json").read_text())
-    (copy / "benchmark/traffic/early_window.json").write_text(json.dumps(
-        {"kind": "train", "start": 1501, "why": "densify with the k-NN"}))
-    (copy / "benchmark/limits/llff-train-early.json").write_text(json.dumps(
+    (copy / "benchmark/traffic/sample_window.json").write_text(json.dumps(
+        {"kind": "train", "start": 2501, "stop": 2900, "why": "densify without the k-NN"}))
+    (copy / "benchmark/limits/llff-train-sample.json").write_text(json.dumps(
         {"limits": {"loss_rel": 1e-3}}))
-    (copy / "benchmark/metrics/knn_ms_per_event.py").write_text(
-        "def read(run):\n    return run.brackets.get('knn') and 1.0\n")
-    b["workloads"].append({"name": "llff-train-early", "config": "llff-fern-3view",
-                           "traffic": "early_window", "chips": 1, "why": "the k-NN"})
+    (copy / "benchmark/metrics/sample_ms_per_event.py").write_text(
+        "def read(run):\n    return run.brackets.get('sample') and 1.0\n")
+    b["workloads"].append({"name": "llff-train-sample", "config": "llff-fern-3view",
+                           "traffic": "sample_window", "chips": 1, "why": "densify"})
     next(m for m in b["end_to_end"] if m["name"] == "train_it_per_s")["workloads"].append(
-        "llff-train-early")
-    b["per_layer"].append({"name": "knn_ms_per_event", "unit": "ms", "better": "lower",
+        "llff-train-sample")
+    b["per_layer"].append({"name": "sample_ms_per_event", "unit": "ms", "better": "lower",
                            "source": "host_clock", "layer": "densify", "moves": "train_it_per_s",
-                           "workloads": ["llff-train-early"]})
+                           "workloads": ["llff-train-sample"]})
     (copy / "BENCHMARK.json").write_text(json.dumps(b))
 
-    cell = spec.load_cell("llff-train-early", root=copy / "benchmark")
-    assert cell.traffic["start"] == 1501
-    assert [m["name"] for m in cell.per_layer] == ["knn_ms_per_event"]
+    cell = spec.load_cell("llff-train-sample", root=copy / "benchmark")
+    assert cell.traffic["start"] == 2501 and cell.traffic["stop"] == 2900
+    assert [m["name"] for m in cell.per_layer] == ["sample_ms_per_event"]
     assert {m["name"] for m in cell.end_to_end} == {"train_it_per_s", "setup_s"}
-    assert spec.reader("knn_ms_per_event", root=copy / "benchmark")(
-        type("R", (), {"brackets": {"knn": [1]}})()) == 1.0
+    assert spec.reader("sample_ms_per_event", root=copy / "benchmark")(
+        type("R", (), {"brackets": {"sample": [1]}})()) == 1.0
     assert all(p.read_bytes() == data for p, data in before.items())
+
+
+def test_the_early_cell_is_found():
+    """``llff-train-early``: fern with isolated Gaussians, a window that
+    cycles before the proximity rule ends, the train cells' metrics and
+    the k-NN's."""
+    cell = spec.load_cell("llff-train-early")
+    assert cell.config["cloud"]["isolated"]["count"] == 256
+    stop = cell.traffic["stop"]
+    assert stop % 100 == 0 and cell.traffic["start"] < stop < cell.config["optim"][
+        "proximity_until_iter"]
+    assert {m["name"] for m in cell.end_to_end} == {"train_it_per_s", "setup_s"}
+    assert {m["name"] for m in cell.per_layer} == {
+        "knn_ms_per_event", "densify_ms_per_event", "launches_per_iter", "k5_roofline_pct",
+        "device_idle_pct.train", "train_mfu", "idle_ms_per_iter.facade",
+        "idle_ms_per_iter.losses", "idle_ms_per_iter.backward", "idle_ms_per_iter.update",
+        "idle_ms_per_iter.loop", "adam_ms_per_iter"}
+    assert set(cell.limits["limits"]) == {"loss_first", "l1_first", "change_first",
+                                          "densify_slots", "densify_gap"}
+    assert spec.reader("knn_ms_per_event")(type("R", (), {"brackets": {"knn": [2.0, 4.0]}})()
+                                           ) == 3.0

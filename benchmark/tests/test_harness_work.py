@@ -128,3 +128,20 @@ def test_shares_by_hand():
     assert spec.reader("render_views_per_s.host")(view) == 100.0
     assert spec.reader("render_device_ms_per_view")(run) is None
     assert Trace().device_ops == 0
+    chunk = Run(kind="train", window_s=2.0, units=100, pseudo_units=0, traced_units=2,
+                work={"bytes_per_unit": 3.35e6, "flops_per_unit": 0.0,
+                      "k5_bytes_per_unit": 6.7e7},
+                trace=summarize([("composite_fwd_kernel", 0, 40),
+                                 ("Memcpy HtoD (Pageable -> Device)", 40, 90),
+                                 ("fused_adam_kernel", 100, 140),
+                                 ("Memcpy DtoH (Device -> Pageable)", 150, 170)], []))
+    # 80 us busy over the two iterations of the profiled chunk, both copies left out
+    assert abs(spec.reader("train_device_ms_per_iter")(chunk) - 0.04) < 1e-12
+    assert spec.reader("train_device_ms_per_iter")(view) is None
+    # 1 us of bytes over the card's 40 us an iteration
+    assert abs(spec.reader("train_mfu.device")(chunk) - 100.0 * 1e-6 / 40e-6) < 1e-9
+    assert spec.reader("train_it_per_s.host")(chunk) == 50.0
+    assert spec.reader("launches_per_iter.device")(chunk) == 2
+    assert abs(spec.reader("adam_ms_per_iter.device")(chunk) - 0.02) < 1e-12
+    assert spec.reader("k5_roofline_pct.device")(chunk) is None
+    assert spec.reader("k5_roofline_pct.device")(run) == spec.reader("k5_roofline_pct")(run)

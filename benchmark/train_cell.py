@@ -7,9 +7,14 @@ moments at zero), drives its first three steps through ``train`` (the
 check's steps, recording the depth net's first call), then on to the
 next hundred (every shape the window uses, a densify event where the
 schedule has one, the first recorded for the check). The window runs whole
-chunks until ``seconds`` have passed. A traced run adds synchronised
-brackets over the window, then times one chunk without them and profiles
-one more.
+chunks until ``seconds`` have passed. With a ``stop`` in the traffic (a
+chunk boundary), a chunk that would pass it starts from the Trainer as the
+window found it (``program.Rewind``), so the window cycles inside the
+schedule's range and each cycle repeats the last bit for bit. A traced run
+adds synchronised brackets over the window, then times one chunk without
+them and profiles one more, cycling alike; an untraced run of a cell whose
+end-to-end metric is read from the device trace profiles one chunk after
+the window.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from benchmark import check, program, scene as scene_lib, work
+from benchmark import check, program, scene as scene_lib, spans, work
 from benchmark.measure import Run
 from benchmark.reference import densify as ref_densify, dpt as ref_dpt
 from benchmark.reference.camera import Cam, intrinsics
@@ -131,10 +136,12 @@ def net_readings(seen: dict, cfg: dict, weights, dev, control: bool = False) -> 
             "net_grad": rel_gap(seen["grad_in"], gx)}
 
 
-def reference_event(before: dict, cfg: dict, extent: float, dev, control: bool = False) -> dict:
-    """The reference densify event (with ``control``, one precision below)
-    from the recorded state ``before``, its split noise drawn from the
-    recorded generator state as the program draws it."""
+def reference_event(before: dict, cfg: dict, extent: float, dev, iteration: int,
+                    control: bool = False, proximity: bool = True) -> dict:
+    """The reference densify event at ``iteration`` (with ``control``, one
+    precision below) from the recorded state ``before``, its split noise
+    drawn from the recorded generator state as the program draws it, the
+    proximity rule where the schedule runs it (and ``proximity``)."""
     opt = cfg["optim"]
     gen = torch.Generator(device=dev)
     gen.set_state(before["generator"])
@@ -144,7 +151,8 @@ def reference_event(before: dict, cfg: dict, extent: float, dev, control: bool =
         return ref_densify.densify_and_prune(
             state, noise, grad_threshold=opt["densify_grad_threshold"],
             min_opacity=opt["prune_threshold"], extent=extent,
-            percent_dense=opt["percent_dense"])
+            percent_dense=opt["percent_dense"],
+            run_proximity=proximity and iteration < opt["proximity_until_iter"])
 
 
 def on_device(v, dev):
@@ -155,7 +163,8 @@ def densify_readings(seen: dict, cfg: dict, extent: float, dev) -> dict:
     """The program's state after the recorded event against the reference
     event's from the state before it."""
     after = {k: on_device(v, dev) for k, v in seen["after"].items() if k != "generator"}
-    return ref_densify.readings(after, reference_event(seen["before"], cfg, extent, dev))
+    return ref_densify.readings(after, reference_event(seen["before"], cfg, extent, dev,
+                                                       seen["iteration"]))
 
 
 def geometry(g) -> dict:
@@ -228,8 +237,13 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float):
     trainer.params1 = None
     t = out.lap("checked_steps", t)
     trainer.train(iterations=-(-(start + CHECKED - 1) // CHUNK) * CHUNK, log_every=CHUNK)
+    # only set-up's event is checked: a window past the schedule's last
+    # event would otherwise copy the whole state to the host at every
+    # interval, waiting for one that never comes
+    trainer.densify_tap = False
 
     program.sync(dev)
+    window = Window(trainer, tr.get("stop"))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t = out.lap("warm_up", t)
@@ -238,19 +252,23 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float):
     if mono is not None:
         mono.times.clear()
     out.setup_s = time.perf_counter() - t_start
-    it0 = trainer.state.step
-    hist = []
     t_open = time.perf_counter()
     while True:
-        hist += trainer.train(iterations=trainer.state.step + CHUNK, log_every=CHUNK)
+        window.chunk()
         if time.perf_counter() - t_open >= seconds:
             break
     out.window_s = program.sync(dev) - t_open
-    out.units = trainer.state.step - it0
-    out.pseudo_units = sum(in_pseudo(opt, it) for it in range(it0 + 1, trainer.state.step + 1))
-    failed = sum(1 for h in hist if not np.isfinite(h["loss"]))
+    out.units = CHUNK * len(window.chunks)
+    out.pseudo_units = sum(in_pseudo(opt, it) for first in window.chunks
+                           for it in range(first, first + CHUNK))
+    failed = sum(1 for h in window.hist if not np.isfinite(h["loss"]))
     t = out.lap("window", t_open)
     out.unit_s = out.window_s / out.units
+    if not trace and any(m["source"] == "device_trace" for m in cell.end_to_end):
+        # an end-to-end metric of the card's time: one chunk profiled
+        out.trace = profiled(window.chunk)
+        out.traced_units = CHUNK
+        t = out.lap("profiled", t)
     if trace:
         # the brackets synchronise: one chunk without them times the
         # iteration for the mfu, and one more is profiled
@@ -260,13 +278,13 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float):
         if pseudo:
             mono.on = False
         t0 = program.sync(dev)
-        trainer.train(iterations=trainer.state.step + CHUNK, log_every=CHUNK)
+        window.chunk()
         out.unit_s = (program.sync(dev) - t0) / CHUNK
         states = [geometry(trainer.state.gaussians)]
-        first = trainer.state.step + 1
-        out.trace = profiled(
-            lambda: trainer.train(iterations=trainer.state.step + CHUNK, log_every=CHUNK))
-        out.traced_units = trainer.state.step - first + 1
+        out.trace = profiled(window.chunk)
+        out.traced_units = CHUNK
+        # the idle-by-span line on standard error, whichever metrics read it
+        spans.stretch(out)
         states.append(geometry(trainer.state.gaussians))
         t = out.lap("profiled", t)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -288,5 +306,45 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float):
     if densify_seen is not None:
         readings.update(densify_readings(densify_seen, cfg, sc.extent, dev))
         readings["densify_iteration"] = densify_seen["iteration"]
+    readings.update(window.repeats())
     out.lap("reference", t)
     return out, readings, peak, out.units, failed
+
+
+class Window:
+    """The window's chunks of ``CHUNK`` iterations from where ``trainer``
+    stands; with ``stop``, a chunk that would pass it first rewinds the
+    Trainer to where the window found it. Keeps each chunk's first
+    iteration and the log points."""
+
+    def __init__(self, trainer, stop=None):
+        self.trainer, self.stop = trainer, stop
+        self.chunks, self.hist = [], []
+        self.rewind = None
+        if stop is not None:
+            opened = trainer.state.step
+            if stop % CHUNK or stop < opened + CHUNK:
+                raise ValueError(f"stop {stop} is no chunk boundary past {opened}")
+            self.rewind = program.Rewind(trainer)
+
+    def chunk(self) -> None:
+        t = self.trainer
+        if self.rewind is not None and t.state.step + CHUNK > self.stop:
+            self.rewind.apply(t)
+        self.chunks.append(t.state.step + 1)
+        self.hist += t.train(iterations=t.state.step + CHUNK, log_every=CHUNK)
+
+    def repeats(self) -> dict:
+        """``cycles``: rewinds; ``cycle_log_points``: log points a later
+        cycle repeated; ``cycle_differing``: those whose loss, PSNR or
+        alive count differ from the first cycle's in any bit."""
+        first, seen, differ = {}, 0, 0
+        for h in self.hist:
+            key = (h["loss"], h["psnr"], h["alive"])
+            if h["iter"] in first:
+                seen += 1
+                differ += key != first[h["iter"]]
+            else:
+                first[h["iter"]] = key
+        cycles = sum(1 for a, b in zip(self.chunks, self.chunks[1:]) if b <= a)
+        return {"cycles": cycles, "cycle_log_points": seen, "cycle_differing": differ}
