@@ -118,17 +118,27 @@ class ProgramScene:
         pass
 
 
+def arch_of(arch: dict, dpt_arch, bit_arch):
+    """``dpt_arch`` from a configuration's ``depth_net.arch``, lists as
+    tuples, with a ``bit_arch`` stem where the arch has ``bit`` (a hybrid
+    net) and none where it has not."""
+    def fields(d):
+        return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+    arch = dict(arch)
+    bit = arch.pop("bit", None)
+    return dpt_arch(**fields(arch), bit=None if bit is None else bit_arch(**fields(bit)))
+
+
 def depth_net(cfg: dict, weights: dict, device):
-    """The program's ``MonoDepth`` (DPT-Hybrid) with the benchmark's weights,
-    in the configuration's type."""
+    """The program's ``MonoDepth`` with the configuration's net and the
+    benchmark's weights, in the configuration's type."""
     from sdpgs_torch.models.bit import BitArch
     from sdpgs_torch.models.depth_estimator import MonoDepth
     from sdpgs_torch.models.dpt import DPT, DPTArch
 
     d = cfg["depth_net"]
-    arch = dict(d["arch"])
-    bit = BitArch(**{k: tuple(v) if isinstance(v, list) else v for k, v in arch.pop("bit").items()})
-    arch = DPTArch(**{k: tuple(v) if isinstance(v, list) else v for k, v in arch.items()}, bit=bit)
+    arch = arch_of(d["arch"], DPTArch, BitArch)
     with torch.device("meta"):
         net = DPT(arch, image_size=d["image_size"])
     net = net.to_empty(device=device)
@@ -149,11 +159,7 @@ def dpt_names_shapes(cfg: dict) -> list:
 def ref_dpt_arch(cfg: dict):
     from benchmark.reference import dpt as ref_dpt
 
-    arch = dict(cfg["depth_net"]["arch"])
-    bit = ref_dpt.BitArch(**{k: tuple(v) if isinstance(v, list) else v
-                             for k, v in arch.pop("bit").items()})
-    return ref_dpt.DPTArch(**{k: tuple(v) if isinstance(v, list) else v
-                              for k, v in arch.items()}, bit=bit)
+    return arch_of(cfg["depth_net"]["arch"], ref_dpt.DPTArch, ref_dpt.BitArch)
 
 
 class Tapped(torch.autograd.Function):

@@ -9,7 +9,8 @@ Gaussians far behind the cameras, in groups of four whose corners meet
 FSGS's proximity rule (``add_isolated``); the others draw nothing more.
 
 The clouds and weights are drawn on the device with one ``torch.Generator``
-in a few large calls; the cameras and poses in numpy from the same seed.
+in a few large calls; the cameras and poses in numpy from the same seed,
+the pseudo poses by the sampler of the layout's kind (``pseudo_poses``).
 The cloud recipe is ``chip_smoke.py``'s ``make_cloud`` and ``perturb``;
 the scene's layout (targets rendered from a hidden cloud, segments by
 angle around the view axis) is ``sdpgs_torch/data/synthetic.py``'s, both
@@ -231,10 +232,22 @@ def build(cfg: dict, seed: int, device, with_pseudo: bool) -> Scene:
                   seg_map=seg_map.to(torch.int32), protos=protos, hidden=hidden,
                   trainee=trainee, bounds=bounds, extent=extent_of(views))
     if with_pseudo:
-        scene.pseudo_poses = pose_lib.generate_random_poses_llff(
-            [v.R for v in views], [v.T for v in views], bounds, n_poses=layout["n_pseudo"],
-            rng=rng)
+        scene.pseudo_poses = pseudo_poses(layout, views, bounds, rng)
     return scene
+
+
+def pseudo_poses(layout: dict, views: list, bounds: np.ndarray,
+                 rng: np.random.Generator) -> np.ndarray:
+    """``layout["n_pseudo"]`` pseudo poses by the program's sampler for the
+    layout (``sdpgs_torch/data/scene.py``): the LLFF sampler for
+    forward-facing views, FSGS's 360 sampler for a ring around the scene."""
+    Rs, Ts = [v.R for v in views], [v.T for v in views]
+    if layout["kind"] == "forward":
+        return pose_lib.generate_random_poses_llff(Rs, Ts, bounds, n_poses=layout["n_pseudo"],
+                                                   rng=rng)
+    if layout["kind"] == "inward":
+        return pose_lib.generate_random_poses_360(Rs, Ts, n_poses=layout["n_pseudo"], rng=rng)
+    raise ValueError(f"no pseudo-pose sampler for layout kind {layout['kind']!r}")
 
 
 def spiral_views(scene: Scene, n_frames: int) -> list:

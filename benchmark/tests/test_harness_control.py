@@ -9,7 +9,8 @@ import torch
 
 from benchmark import check, control, spec
 
-CELLS = ("llff-train-pseudo", "m360-train-plain", "llff-render", "llff-train-early")
+CELLS = ("llff-train-pseudo", "m360-train-plain", "llff-render", "llff-train-early",
+         "m360-train-pseudo")
 
 
 def verdicts(cell, seed: int, dev) -> dict:

@@ -19,8 +19,11 @@ CPU = torch.device("cpu")
 # the scene was made before isolated Gaussians existed: the hidden cloud,
 # the trainee, the prototypes, the views, the extent and the pseudo poses
 DRAWS = {"llff-fern-3view": "2f88bc306a41d177a3e2a4f6f52475a3",
-         "m360-garden-24view": "5647222bf53a6decf8031af03bac644a",
+         "m360-garden-24view": "6d55920d5c59eee2bdf51e4f985eb084",
          "m360-garden-24view-r4": "5647222bf53a6decf8031af03bac644a"}
+# a configuration that has gained pseudo poses (``layout.n_pseudo``) still
+# draws everything else as before: its scene built without them
+WITHOUT_PSEUDO = {"m360-garden-24view": "5647222bf53a6decf8031af03bac644a"}
 
 
 def draws(sc) -> str:
@@ -116,6 +119,9 @@ def test_scenes_without_isolated_gaussians_are_unchanged(small_bench):
         cfg = json.loads((small_bench / "configs" / f"{name}.json").read_text())
         sc = scene_lib.build(cfg, 11, CPU, with_pseudo="n_pseudo" in cfg["layout"])
         assert draws(sc) == digest, name
+    for name, digest in WITHOUT_PSEUDO.items():
+        cfg = json.loads((small_bench / "configs" / f"{name}.json").read_text())
+        assert draws(scene_lib.build(cfg, 11, CPU, with_pseudo=False)) == digest, name
     fern, early = (scene_lib.build(
         json.loads((small_bench / "configs" / f"{n}.json").read_text()), 11, CPU, False)
         for n in ("llff-fern-3view", "llff-fern-3view-early"))

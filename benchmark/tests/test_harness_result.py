@@ -169,6 +169,12 @@ def lower_depth_net(monkeypatch):
     ("llff-train-early", frozen_densify),
     ("llff-train-early", no_proximity),
     ("llff-train-early", altered_render),
+    ("m360-train-pseudo", frozen_step),
+    ("m360-train-pseudo", altered_render),
+    ("m360-train-pseudo", no_pseudo),
+    ("m360-train-pseudo", frozen_densify),
+    ("m360-train-pseudo", unmoved_children),
+    ("m360-train-pseudo", lower_depth_net),
 ])
 def test_a_broken_path_is_not_correct(small_bench, monkeypatch, cell, fault):
     fault(monkeypatch)
