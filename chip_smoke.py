@@ -301,6 +301,11 @@ BENCH_SHAPE_STEPS = 3         # its sharded steps per mesh (scripts/certify_benc
 ADAM_SLOTS = (1 << 22, 524_288)   # fused Adam: the r4 and m360 cells' capacities
 ADAM_FLOATS = 62              # trainable floats a slot at SH 3
 ADAM_BYTES = 7 * 4            # a float: parameter, gradient and moments read; three written
+# the k-NN kernel: (slots, alive) of the early fern and the m360 cells' capacities; f32
+# instructions a (query, valid candidate) pair: q.p's multiply and two FMAs, |q|^2 - 2 t's FMA,
+# the sum with |p|^2, the compare against the row's k-th best
+KNN_SHAPES = ((131_072, 60_000), (524_288, 262_144))
+KNN_OPS_PER_PAIR = 6
 
 
 def card_line() -> str:
@@ -2244,6 +2249,9 @@ def cli_phase(dev, raw, work: Path) -> dict:
             "CLI: K7/K8 or a plain version ran")
     require([e["knn"] for e in trainer.events["densify"]] == [True, False],
             "CLI: not one densify event with the k-NN and one without")
+    require(launches["knn"] == sum(e["knn"] for e in trainer.events["densify"]) + 1,
+            "CLI: the k-NN kernel did not launch once per k-NN densify event and once for "
+            "create_from_points' init scales")
     require(sorted(l1) == [CLI_LOG_EVERY, CLI_ITERATIONS]
             and l1[CLI_ITERATIONS] < l1[CLI_LOG_EVERY],
             f"CLI: the train L1 did not fall from {CLI_LOG_EVERY} to {CLI_ITERATIONS}")
@@ -3556,6 +3564,80 @@ def adam_times_main() -> int:
     return 0
 
 
+def knn_times(dev) -> dict:
+    """The k-NN kernel at KNN_SHAPES (alive points around fern's centre, dead
+    slots at the origin): one call bit-equal to the plain version on the
+    card and one launch, the kernel's median time of 20 calls beside its
+    f32 instruction bound and the plain version's time (one call), and
+    one call's device operations by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdpgs_torch import _kernels
+    from sdpgs_torch.ops import knn as knn_ops
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    for P, alive in KNN_SHAPES:
+        xyz = torch.zeros((P, 3), device=dev)
+        xyz[:alive] = (torch.randn((alive, 3), generator=gen, device=dev)
+                       * torch.tensor([1.2, 0.9, 0.6], device=dev)
+                       + torch.tensor([0.0, 0.0, 4.0], device=dev))
+        mask = (torch.arange(P, device=dev) < alive).to(torch.float32)
+        before = _kernels.LAUNCHES["knn"]
+        kd, ki = knn_ops.knn(xyz, k=3, mask=mask, device=dev)
+        torch.cuda.synchronize()
+        require(_kernels.LAUNCHES["knn"] == before + 1, "the k-NN kernel did not launch once")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        pd, pi = knn_ops.knn_plain(xyz, k=3, mask=mask)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        equal = torch.equal(ki, pi) and torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+        require(equal, f"the k-NN kernel at {P} slots differs from the plain version")
+        del kd, ki, pd, pi
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: knn_ops.knn(xyz, k=3, mask=mask, device=dev))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            knn_ops.knn(xyz, k=3, mask=mask, device=dev)
+            torch.cuda.synchronize()
+        ops = [(e.name(), e.duration_ns() * 1e-6) for e in prof.profiler.kineto_results.events()
+               if e.device_type().name == "CUDA"]
+        print(f"  one call's device operations (name, ms): "
+              f"{[(name[:48], round(t, 4)) for name, t in ops]}", flush=True)
+        rate = F32_FLOPS / 2      # f32 instructions a second, an FMA one
+        bound_ms = P * alive * KNN_OPS_PER_PAIR / rate * 1e3
+        all_ms = P * P * KNN_OPS_PER_PAIR / rate * 1e3
+        out[P] = dict(alive=alive, ms=ms, bound_ms=bound_ms, all_slots_bound_ms=all_ms,
+                      plain_ms=plain_ms, equal=equal)
+        print(f"  knn_kernel at {P} slots, {alive} alive: {ms:.4f} ms, {ms / bound_ms:.3f}x its "
+              f"bound {bound_ms:.4f} ms ({P} x {alive} pairs x {KNN_OPS_PER_PAIR} f32 "
+              f"instructions; over every slot {all_ms:.4f} ms); the plain version "
+              f"{plain_ms:.1f} ms (one call); bit-equal {equal}", flush=True)
+        del xyz, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def knn_times_main() -> int:
+    """``--knn-times``: build the kernels, print the k-NN kernel's registers
+    and spills, then knn_times, as one JSON line."""
+    from sdpgs_torch import _kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    _kernels.build()
+    in_src = False
+    for line in _kernels.BUILD_LOG.splitlines():
+        in_src = line == "== knn.cu" if line.startswith("== ") else in_src
+        if in_src and ("registers" in line or "spill" in line or "entry function" in line):
+            print("  " + line.strip())
+    print(json.dumps({"knn": knn_times(torch.device("cuda"))}))
+    return 0
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -3795,6 +3877,7 @@ def drive(dev: torch.device, work: Path) -> int:
         k8_lib = cuda_ms(lambda: probe_args[0] + probe_args[1] + probe_args[2][:, 0])
     adam_shapes = adam_times(dev)
     preprocess_times(dev)
+    knn_shapes = knn_times(dev)
     npix = cfg.tile ** 2
     # K2 reads n_valid rects and ids; K3 and K5 the listed entries and the
     # payload rows they reference; K5 writes the whole payload gradient
@@ -3867,7 +3950,13 @@ def drive(dev: torch.device, work: Path) -> int:
                         launches=cli["launches"]["adam"], max_abs_err=0.0, ms=adam_r4["ms"],
                         plain_ms=adam_r4["chain_ms"], bound_ms=adam_r4["bound_ms"],
                         bound_by="bytes", library_ms=None))
-    for r, per in zip(records, [row[5] for row in rows] + [per_tr]):
+    knn_fern = knn_shapes[KNN_SHAPES[0][0]]
+    records.append(dict(name="knn_kernel", route="cuda", source="sdpgs_torch/csrc/knn.cu",
+                        replaces="none: XLA's product and lax.top_k in the JAX package",
+                        launches=cli["launches"]["knn"], max_abs_err=0.0, ms=knn_fern["ms"],
+                        plain_ms=knn_fern["plain_ms"], bound_ms=knn_fern["bound_ms"],
+                        bound_by="operations", library_ms=None))
+    for r, per in zip(records, [row[5] for row in rows] + [per_tr, per_tr]):
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms{lib}), bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, {r['launches']} launches "
@@ -3899,5 +3988,5 @@ def drive(dev: torch.device, work: Path) -> int:
 
 if __name__ == "__main__":
     modes = {"--k5-times": k5_times_main, "--adam-times": adam_times_main,
-             "--preprocess-times": preprocess_times_main}
+             "--preprocess-times": preprocess_times_main, "--knn-times": knn_times_main}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -26,12 +26,13 @@ alignment, multi-view fusion, the MVS and COLMAP helpers) over the
 ``native/`` I/O library; ``viewer/`` serves SIBR's remote viewer and
 ``utils/profiling`` traces and spans the port's phases. Multi-card training: ``parallel/`` puts the
 train step and the ``Trainer`` on a (data, gauss, tile) mesh of
-``torch.distributed`` ranks. Eight
+``torch.distributed`` ranks. Ten
 kernels in ``csrc/`` carry them on the card: three forward (preprocess,
 binning, compositing), two backward (preprocess, compositing), the
-reprojection z-buffer, and two that serve their own entry points, the
-stable depth sort (``ops/sort.py``) and the launch-floor probe
-(``ops/launch_floor.py``). Beside each wrapper sits a plain PyTorch
+reprojection z-buffer, the fused Adam update (``opt/adam.py``), the
+k-NN of densify and the init scales (``ops/knn.py``), and two that serve
+their own entry points, the stable depth sort (``ops/sort.py``) and the
+launch-floor probe (``ops/launch_floor.py``). Beside each wrapper sits a plain PyTorch
 version of the same function, used for CPU tensors and as the kernel's
 check.
 

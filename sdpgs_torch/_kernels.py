@@ -17,7 +17,9 @@ branch. K7 (``SORT_KERNELS``, the stable depth sort of ``ops/sort.py``)
 and K8 (``PROBE_KERNELS``, the launch-floor probe of
 ``ops/launch_floor.py``) each serve their own entry point and lie on no
 render or train path. ``OPT_KERNELS`` holds the fused Adam of
-``opt/adam.py``, one launch a train step.
+``opt/adam.py``, one launch a train step, and ``DENSIFY_KERNELS`` the
+k-NN of ``ops/knn.py``, one launch a call (densify events before the
+proximity rule ends, the init scales of ``create_from_points``).
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ SOURCES = {
     "launch_floor.cu": [],
     # Adam rounds every operation as PyTorch's op chain does on the card
     "adam.cu": ["-fmad=false"],
+    # the k-NN's distances round exactly as the plain version's product and sums
+    "knn.cu": ["-fmad=false"],
 }
 FORWARD_KERNELS = ("preprocess", "binning", "composite")
 BACKWARD_KERNELS = ("preprocess_bwd", "composite_bwd")
@@ -59,8 +63,9 @@ WARP_KERNELS = ("warp_zbuf",)
 SORT_KERNELS = ("sort",)
 PROBE_KERNELS = ("launch_floor",)
 OPT_KERNELS = ("adam",)
+DENSIFY_KERNELS = ("knn",)
 KERNELS = (FORWARD_KERNELS + BACKWARD_KERNELS + WARP_KERNELS + SORT_KERNELS + PROBE_KERNELS
-           + OPT_KERNELS)
+           + OPT_KERNELS + DENSIFY_KERNELS)
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
@@ -116,6 +121,8 @@ _SIGNATURES = {
     # groups (host array of SdpgsAdamGroup), n_groups, b1, 1 - b1, b2, 1 - b2, 1 / bc1,
     # 1 / bc2, eps, stream
     "sdpgs_fused_adam": [_P, _I, _F, _F, _F, _F, _F, _F, _F, _P],
+    # points, norms, invalid (or null), n, k, d2, idx, stream
+    "sdpgs_knn": [_P, _P, _P, _I, _I, _P, _P, _P],
 }
 _lib = None
 

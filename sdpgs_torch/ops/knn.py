@@ -13,13 +13,20 @@ smallest are taken.
 So the selection sorts on one int64 key per candidate, the distance's
 order-preserving bits above the index, which makes the (distance, index)
 order explicit and equal to JAX's.
+
+That chain is the plain version (``knn_plain``), which CPU tensors take. On
+CUDA tensors one launch of ``knn_kernel`` (``csrc/knn.cu``) computes the
+same distances in the same rounding and keeps each row's k best keys in
+registers, with no [chunk, N] block in memory; the two agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sdpgs_torch import default_device
+from sdpgs_torch import _kernels, default_device
+
+MAX_K = 8    # kMaxK of csrc/knn.cu: the largest k the kernel takes
 
 
 def _sq_norm(p: torch.Tensor) -> torch.Tensor:
@@ -47,13 +54,47 @@ def knn(points: torch.Tensor, k: int = 3, mask: torch.Tensor | None = None,
 
     points [N, 3] f32; mask: optional [N] float/bool validity (invalid
     points are never neighbours and their distances are +inf); chunk: the
-    query rows per matmul. Runs on ``device`` (``cuda`` unless the caller
-    asks for another), where the tensors must live. Returns (squared
-    distances [N, k] f32, clamped at 0, and indices [N, k] int64), by
-    ascending distance, ties by ascending index."""
+    plain version's query rows per matmul (the kernel takes none). Runs on
+    ``device`` (``cuda`` unless the caller asks for another), where the
+    tensors must live: the kernel on CUDA (k at most ``MAX_K``), the plain
+    version on the CPU. Returns (squared distances [N, k] f32, clamped at
+    0, and indices [N, k] int64), by ascending distance, ties by ascending
+    index."""
     dev = default_device(device)
     if points.device.type != dev.type:
         raise ValueError(f"points live on {points.device}, k-NN device is {dev}")
+    if points.is_cuda:
+        return knn_cuda(points, k, mask)
+    return knn_plain(points, k, mask, chunk)
+
+
+@torch.no_grad()
+def knn_cuda(points: torch.Tensor, k: int = 3, mask: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``knn_kernel``: ``knn`` on CUDA tensors."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the k-NN kernel takes k from 1 to {MAX_K}, got {k}")
+    n = points.shape[0]
+    if n < k:
+        raise ValueError(f"k-NN of {n} points with k = {k}")
+    points = points.detach().to(torch.float32).contiguous()
+    _kernels.check(points, "points", torch.float32, (n, 3))
+    sq_norm = _sq_norm(points)
+    invalid = None
+    if mask is not None:
+        invalid = (mask.detach().to(torch.float32) == 0.0).contiguous()
+        _kernels.check(invalid, "mask", torch.bool, (n,))
+    d2 = torch.empty((n, k), dtype=torch.float32, device=points.device)
+    idx = torch.empty((n, k), dtype=torch.int64, device=points.device)
+    _kernels.launch("knn", "sdpgs_knn", *(_kernels.ptr(t) for t in (points, sq_norm, invalid)),
+                    n, k, _kernels.ptr(d2), _kernels.ptr(idx), _kernels.stream(points.device))
+    return d2, idx
+
+
+def knn_plain(points: torch.Tensor, k: int = 3, mask: torch.Tensor | None = None,
+              chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``knn``, by query chunks of ``chunk`` rows."""
+    _kernels.plain_call("knn")
     n = points.shape[0]
     points = points.to(torch.float32)
     sq_norm = _sq_norm(points)
